@@ -1,0 +1,87 @@
+"""Plain-torch attention oracle (grouped-query, causal / sliding-window),
+the port of `repro.kernels.flash_attention.ref` lines 14-81. Prefill and
+chunked extend use it, as the reference does; it is not a Pallas kernel in
+the reference, so no hand-written kernel replaces it.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attn_mask(
+    q_len: int,
+    kv_len: int,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset=0,
+    kv_valid=None,
+    device=None,
+) -> torch.Tensor:
+    """Boolean [q_len, kv_len] (or [B, q_len, kv_len]) mask; True = attend.
+
+    q_offset: absolute position of q[0] relative to kv[0]: an int, or a [B]
+        tensor of per-row offsets (slot-based decode / chunked extend).
+    window: sliding-window size (0 = unlimited). position i attends j iff
+        j <= i (causal) and i - j < window.
+    kv_valid: optional [B] number of valid kv slots.
+    """
+    qpos = torch.arange(q_len, device=device)[:, None]  # [q,1]
+    kpos = torch.arange(kv_len, device=device)[None, :]  # [1,k]
+    if torch.is_tensor(q_offset) and q_offset.ndim:
+        qpos = qpos[None] + q_offset.to(device).reshape(-1, 1, 1)  # [B,q,1]
+        kpos = kpos[None]  # [1,1,k]
+        mask = torch.ones((q_offset.shape[0], q_len, kv_len), dtype=torch.bool,
+                          device=device)
+    else:
+        qpos = qpos + int(q_offset)
+        mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (qpos - kpos < window)
+    if kv_valid is not None:
+        kv_valid = torch.as_tensor(kv_valid, device=device)
+        if mask.ndim == 2:
+            mask = mask[None]
+        kpos_b = kpos if kpos.ndim == 3 else kpos[None]
+        mask = mask & (kpos_b < kv_valid.reshape(-1, 1, 1))
+    return mask
+
+
+def mha_reference(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,  # [B, Sk, Hkv, D]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset=0,
+    kv_valid=None,
+) -> torch.Tensor:
+    """Grouped-query attention, scores and softmax in f32, probabilities
+    cast to v's dtype for the value product. Returns [B, Sq, Hq, D]. A row
+    with no visible slot averages over the masked ones, as the reference
+    does (serving never produces one)."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    # 1/sqrt(D) rounded to f32, as the reference; a Python float, so no
+    # host->device copy
+    scale = (1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))).item()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    mask = attn_mask(Sq, Sk, causal=causal, window=window, q_offset=q_offset,
+                     kv_valid=kv_valid, device=q.device)
+    if mask.ndim == 2:
+        mask = mask[None, None, None]  # [1,1,1,q,k]
+    else:  # [B,q,k]
+        mask = mask[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, Hq, D)

@@ -1,0 +1,116 @@
+"""Public wrapper of the flash-decode kernel (`csrc/flash_decode.cu`).
+
+Model code calls flash_decode(q, k, v, kv_valid=...) in the cache layout
+([B, 1, Hq, D] query, [B, cap, Hkv, D] cache), as in the reference's
+`repro.kernels.flash_decode.ops`. CPU tensors go to the plain version in
+`ref.py`; CUDA tensors go to the hand-written kernel, or the wrapper
+raises. The kernel reads the cache through its strides, so unlike the
+reference wrapper nothing is transposed.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.flash_decode.ref import decode_reference, per_row
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
+GROUPS = (1, 2, 4, 8)  # query heads per kv head the source instantiates
+MAX_HEAD_DIM = 256  # kMaxD in the source; D must also be a multiple of 8
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_cuda_library("flash_decode", SOURCES)
+    fn = lib.repro_flash_decode
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, P]
+    fn.restype = I
+    lib.repro_cuda_error_string.argtypes = [I]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v, kv_valid, q_offset, window):
+    if not (k.is_cuda and v.is_cuda and kv_valid.is_cuda and q_offset.is_cuda):
+        raise ValueError("flash_decode: q is on CUDA, so k, v, kv_valid and "
+                         "q_offset must be too")
+    if len({q.device, k.device, v.device, kv_valid.device, q_offset.device}) != 1:
+        raise ValueError("flash_decode: tensors on different devices")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_decode: q/k/v must share a dtype among "
+                         f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_decode: want q [B,1,Hq,D], k = v "
+                         f"[B,cap,Hkv,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, Hq, D = q.shape
+    Bk, cap, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hq % Hkv or cap < 1:
+        raise ValueError(f"flash_decode: mismatched shapes {tuple(q.shape)} "
+                         f"vs {tuple(k.shape)}")
+    if Hq // Hkv not in GROUPS or D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"flash_decode: kernel takes G in {GROUPS} and D a "
+                         f"multiple of 8 up to {MAX_HEAD_DIM}; got "
+                         f"G={Hq // Hkv}, D={D}")
+    if not q.is_contiguous():
+        raise ValueError("flash_decode: q must be contiguous")
+    if k.stride(-1) != 1 or k.stride() != v.stride():
+        raise ValueError(f"flash_decode: k and v need unit stride over D and "
+                         f"equal strides; got {k.stride()}, {v.stride()}")
+    # each lane loads 8 consecutive elements of a row with 16-byte loads
+    if any(s % 8 for s in k.stride()[:3]) or any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: q/k/v rows must be 16-byte aligned "
+                         "(strides multiples of 8 elements)")
+    for name, t in (("kv_valid", kv_valid), ("q_offset", q_offset)):
+        if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
+            raise ValueError(f"flash_decode: {name} must be contiguous int32 "
+                             f"[{B}], got {t.dtype} {tuple(t.shape)}")
+    if window < 0:
+        raise ValueError(f"flash_decode: window must be >= 0, got {window}")
+
+
+def flash_decode(
+    q: torch.Tensor,  # [B, 1, Hq, D]
+    k: torch.Tensor,  # [B, cap, Hkv, D]
+    v: torch.Tensor,
+    *,
+    kv_valid,  # [B] or scalar: live cache rows per batch row
+    q_offset=None,  # [B] or scalar absolute position (default kv_valid - 1)
+    window: int = 0,
+) -> torch.Tensor:
+    """Single-query attention over a padded cache. Row b attends cache
+    slots j with j < kv_valid[b] (and j > q_offset[b] - window when
+    windowed). Returns [B, 1, Hq, D] in q's dtype."""
+    if not q.is_cuda:
+        return decode_reference(q, k, v, kv_valid=kv_valid, q_offset=q_offset,
+                                window=window)
+    B, _, Hq, D = q.shape
+    kv_valid = per_row(kv_valid, B, q.device)
+    q_offset = kv_valid - 1 if q_offset is None else per_row(q_offset, B, q.device)
+    window = int(window)
+    _check(q, k, v, kv_valid, q_offset, window)
+    out = torch.empty_like(q)
+    lib = _lib()
+    rc = lib.repro_flash_decode(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), kv_valid.data_ptr(), q_offset.data_ptr(),
+        B, Hq, k.shape[2], D, k.shape[1], window,
+        k.stride(0), k.stride(1), k.stride(2),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        msg = lib.repro_cuda_error_string(rc).decode()
+        raise RuntimeError(f"flash_decode kernel launch failed: {msg} ({rc})")
+    flash_decode.launches += 1
+    return out
+
+
+# kernel launches (the plain CPU path is not counted): a run reads it to
+# show that its decode attention went through the kernel
+flash_decode.launches = 0

@@ -1,0 +1,255 @@
+"""Serving launcher (port of `repro.launch.serve`): random-inits a split
+model from a seed and serves batched requests with per-client routing
+through the MTSL towers. Runs on CUDA unless `--device cpu` is given.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --prompt-len 12 --new-tokens 6
+    # timed serving smoke (prefill ms / decode tok/s / tok/s/slot):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --bench --engine continuous
+    # gemma3-12b at full width on one card, 2 clients, 8 mixed-length
+    # requests over 4 slots:
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+        --num-clients 2 --batch-per-client 4 --slots 4 --chunk 64 \
+        --prompt-len 256 --min-prompt-len 64 --new-tokens 32 --bench
+
+Unlike the reference's `--smoke` (store_true with default True), `--smoke`
+here can be turned off (`--no-smoke`), so the full config is reachable.
+Loading a checkpoint (`--checkpoint`) is not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.split import stack_towers
+from repro_torch.models.registry import build_model
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.sampling import fold_in
+from repro_torch.utils.device import generator, resolve_device
+
+
+def init_params(model, num_clients: int, seed: int, device):
+    """{"towers": [M, ...]-stacked, "server": ...} drawn from `seed`."""
+    gen = generator(device, seed)
+    return {"towers": stack_towers(model.init_tower, gen, num_clients),
+            "server": model.init_server(gen)}
+
+
+def _prompts(cfg, n: int, prompt_len: int, min_prompt_len, seed: int):
+    rng = np.random.default_rng(seed)
+    lo = prompt_len if min_prompt_len is None else min_prompt_len
+    lens = rng.integers(lo, prompt_len + 1, size=n)
+    return [rng.integers(0, cfg.vocab_size, size=int(L)) for L in lens]
+
+
+def _profile_decode(eng, submit_all) -> dict:
+    """Device-time breakdown of one more decode phase (the first wave's
+    slots decoding to completion) under torch.profiler: kernel time per
+    step by kernel name, and the share of the wall time the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    submit_all()
+    eng.prefill_all()
+    eng.sync()
+    steps0 = eng.stats["decode_steps"]
+    acts = [ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.decode_all()
+        eng.sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = max(eng.stats["decode_steps"] - steps0, 1)
+    eng.run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {
+        "decode_steps": steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": device_ms / steps,
+        "device_busy_share": device_ms / wall_ms,
+        "top_kernels": [
+            {"name": e.key[:80], "ms_per_step": e.self_device_time_total / 1e3 / steps,
+             "calls_per_step": e.count / steps} for e in kernels[:12]],
+    }
+
+
+def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
+              new_tokens: int, engine_kind: str, chunk: int = 8, *,
+              device="cuda", slots=None, min_prompt_len=None, seed=0,
+              profile: bool = False) -> dict:
+    """Timed serving smoke: one warm-up pass, then a measured prefill phase
+    and decode phase over M*b requests (request i is client i % M).
+    Returns prefill_ms / decode_tok_s / tok_s_per_slot.
+
+    continuous: `slots` (default M*b) cache slots; prompt lengths uniform
+    in [min_prompt_len, prompt_len] (default: all prompt_len). The timed
+    phases cover the first wave (as many requests as there are slots);
+    the rest are then served interleaved by `run()`, and `outputs` holds
+    every request's tokens. `profile` then adds a profiled decode phase
+    (`_profile_decode`). sequential: M*b rows in lockstep."""
+    dev = resolve_device(device)
+    n_req = M * b
+    max_len = prompt_len + new_tokens
+    prompts = _prompts(cfg, n_req, prompt_len, min_prompt_len, seed)
+
+    if engine_kind == "continuous":
+        from repro_torch.serve.continuous import ContinuousEngine, Request
+
+        slots = slots or n_req
+        chunk = min(chunk, prompt_len)
+        eng = ContinuousEngine(model, params, M, max_len, slots=slots,
+                               chunk=chunk, seed=seed, device=dev)
+
+        def submit_all():
+            for i in range(n_req):
+                eng.submit(Request(id=i, client=i % M, tokens=prompts[i],
+                                   new_tokens=new_tokens))
+
+        submit_all()  # warm-up
+        eng.run()
+        submit_all()
+        eng.sync()
+        t0 = time.perf_counter()
+        n_chunks = eng.prefill_all()
+        eng.sync()
+        t1 = time.perf_counter()
+        emitted = eng.decode_all()
+        eng.sync()
+        t2 = time.perf_counter()
+        res = eng.run()  # serves the requests that found no free slot
+        prefill_s, decode_s = t1 - t0, t2 - t1
+        decode_tokens = emitted
+        n_slots = slots
+        extra = {"profile": _profile_decode(eng, submit_all)} if profile else {}
+        extra.update({"extend_chunks": n_chunks,
+                 "decode_steps": eng.stats["decode_steps"],
+                 "logits_finite": eng.logits_finite(),
+                 "outputs": [res[i] for i in range(n_req)]})
+    else:
+        if min_prompt_len is not None:
+            raise ValueError("the sequential engine takes one prompt length")
+        engine = ServeEngine(model, params, M, max_len, device=dev)
+        tokens = torch.as_tensor(np.stack(prompts).reshape(M, b, prompt_len),
+                                 dtype=torch.int64, device=dev)
+        out = engine.generate_sequential({"tokens": tokens}, new_tokens)  # warm-up
+        _sync(dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, caches = engine._prefill(engine.params, tokens)
+            tok = engine._sample(logits, 0.0, None, 0).reshape(M, b, 1)
+            _sync(dev)
+            t1 = time.perf_counter()
+            for t in range(new_tokens - 1):
+                logits = engine._decode(engine.params, caches, tok.long(),
+                                        prompt_len + t)
+                tok = engine._sample(logits, 0.0, None, t + 1).reshape(M, b, 1)
+            _sync(dev)
+            t2 = time.perf_counter()
+        prefill_s, decode_s = t1 - t0, t2 - t1
+        decode_tokens = n_req * (new_tokens - 1)
+        n_slots = n_req
+        extra = {"outputs": list(out.reshape(n_req, new_tokens).numpy())}
+
+    decode_tok_s = decode_tokens / max(decode_s, 1e-9)
+    return {
+        "engine": engine_kind,
+        "arch": cfg.name,
+        "device": str(dev),
+        "slots": n_slots,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_tok_s": decode_tok_s,
+        "tok_s_per_slot": decode_tok_s / n_slots,
+        **extra,
+    }
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-12b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True, help="the reduced smoke config (default); "
+                    "--no-smoke for the full published config")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--num-clients", type=int, default=None,
+                    help="M client towers (default: the config's)")
+    ap.add_argument("--batch-per-client", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--min-prompt-len", type=int, default=None,
+                    help="--bench, continuous: prompt lengths uniform in "
+                         "[min, --prompt-len]")
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--engine", choices=("continuous", "sequential"),
+                    default="continuous")
+    ap.add_argument("--bench", action="store_true",
+                    help="timed prefill/decode smoke instead of generation")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="--bench, continuous: cache slots (default M*b)")
+    ap.add_argument("--chunk", type=int, default=8,
+                    help="--bench, continuous: prefill chunk")
+    ap.add_argument("--profile", action="store_true",
+                    help="--bench, continuous: add a torch.profiler decode "
+                         "phase (kernel time per step, device busy share)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base seed: params init, prompts, and the engine's "
+                         "per-request sampling keys")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":  # f32 matmuls in full f32, as the reference
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = build_model(cfg)
+    M = args.num_clients or cfg.num_clients
+    b = args.batch_per_client
+    params = init_params(model, M, args.seed, dev)
+
+    if args.bench:
+        metrics = run_bench(model, params, cfg, M, b, args.prompt_len,
+                            args.new_tokens, args.engine, args.chunk,
+                            device=dev, slots=args.slots,
+                            min_prompt_len=args.min_prompt_len, seed=args.seed,
+                            profile=args.profile)
+        print(f"[{metrics['engine']}] prefill {metrics['prefill_ms']:.1f} ms | "
+              f"decode {metrics['decode_tok_s']:.1f} tok/s | "
+              f"{metrics['tok_s_per_slot']:.1f} tok/s/slot "
+              f"({metrics['slots']} slots, {metrics['device']})")
+        return metrics
+
+    max_len = args.prompt_len + args.new_tokens
+    engine = ServeEngine(model, params, M, max_len, sample_seed=args.seed,
+                         device=dev)
+    rng = np.random.default_rng(args.seed)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size,
+                                     size=(M, b, args.prompt_len))}
+    gen = (engine.generate if args.engine == "continuous"
+           else engine.generate_sequential)
+    t0 = time.perf_counter()
+    out = gen(inputs, args.new_tokens, temperature=args.temperature,
+              rng=fold_in(args.seed, 2))
+    dt = time.perf_counter() - t0
+    total = M * b * args.new_tokens
+    print(f"generated {tuple(out.shape)} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s on {dev})")
+    print("sample (client 0):", out[0, 0].numpy()[:16])
+    return out
+
+
+if __name__ == "__main__":
+    main()

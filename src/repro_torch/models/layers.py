@@ -1,0 +1,249 @@
+"""Shared building blocks of the dense decoder (port of
+`repro.models.layers`): norms, RoPE, embeddings, GQA self-attention with
+KV caches, SwiGLU MLP. Parameters are plain tensors in dicts with the
+reference's keys and layouts (dense `w[din, dout]`, `wq[d, H, D]`).
+
+Dtypes follow where the reference uses each weight: it keeps parameters in
+f32 and casts matmul weights to `cfg.dtype` at each use, so the port stores
+those in `cfg.dtype` once (identical values); embedding tables and norm
+scales stay f32, because the reference scales the f32 embedding row before
+rounding and applies norm scales in f32.
+
+Attention execution modes (self-attention only in this slice):
+  - prefill: full sequence, causal (+ sliding window), returns a KV cache
+  - decode:  one token per row against the row's cache slot, per-row
+             positions; always through the flash-decode wrapper (the CUDA
+             kernel on CUDA tensors)
+  - extend:  a chunk of C tokens per row appended to a partial cache
+Decode and extend write K/V into the cache IN PLACE (the reference returns
+a new cache); decode takes an optional per-row `write` mask so frozen rows
+keep their cache, as the reference's where-masked update does.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ref import mha_reference
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import per_row
+from repro_torch.nn import param
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms / rope / embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_params(gen, d):
+    return {"scale": param(gen, (d,), init="ones", dtype=torch.float32)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
+    """[half] f32 frequencies, built on the CPU once per (theta, half,
+    device): a host->device copy per call would stall the host."""
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32) / half)
+    return freqs.to(device)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: [..., S, H, D]; positions: broadcastable to
+    [..., S]. Frequencies are exp(-log(theta) * i / half) in f32, the
+    reference's formula (not theta ** (-i / half), which rounds apart)."""
+    D = x.shape[-1]
+    half = D // 2
+    ang = positions[..., None].float() * _rope_freqs(theta, half, x.device)
+    ang = ang[..., None, :]  # broadcast over heads: [..., S, 1, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
+
+
+def embedding_params(gen, cfg: ModelConfig):
+    return {"table": param(gen, (cfg.vocab_size, cfg.d_model), init="normal",
+                           dtype=param_dtype(cfg))}
+
+
+def embed(p, tokens, cfg: ModelConfig):
+    """Row lookup in the f32 table, scaled by sqrt(d) in f32, rounded once."""
+    x = p["table"][tokens]
+    return (x * math.sqrt(float(cfg.d_model))).to(compute_dtype(cfg))
+
+
+def logits_f32(x, w):
+    """x [..., d] @ w [d, V] with f32 accumulation and f32 output (the
+    reference's preferred_element_type=float32)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# attention (pre-norm residual: x + attn(norm(x)); MLP added by the caller)
+# ---------------------------------------------------------------------------
+
+
+def attn_params(gen, cfg: ModelConfig):
+    d, Hq, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = compute_dtype(cfg)
+    return {
+        "wq": param(gen, (d, Hq, D), dtype=dt, fan_in=d),
+        "wk": param(gen, (d, Hkv, D), dtype=dt, fan_in=d),
+        "wv": param(gen, (d, Hkv, D), dtype=dt, fan_in=d),
+        "wo": param(gen, (Hq, D, d), dtype=dt, fan_in=Hq * D),
+        "norm": rmsnorm_params(gen, d),
+    }
+
+
+def _proj(x, w):
+    """x [..., S, d] @ w [d, H, D] -> [..., S, H, D]."""
+    d, H, D = w.shape
+    return (x @ w.reshape(d, H * D)).reshape(*x.shape[:-1], H, D)
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    q = rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
+    k = rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
+    v = _proj(x, p["wv"])
+    return q, k, v
+
+
+def _out_proj(out, wo):
+    """out [..., S, H, D] @ wo [H, D, d] -> [..., S, d]."""
+    H, D, d = wo.shape
+    return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, d)
+
+
+def _no_ring(cfg: ModelConfig):
+    if cfg.decode_long_window:
+        raise NotImplementedError(
+            "ring KV caches (decode_long_window) are not ported yet")
+
+
+def attn_prefill(p, x, cfg: ModelConfig, *, window: int = 0, max_len: int = 0):
+    """x: [B,S,d]. Returns (y [B,S,d], cache {'k','v'} [B,cap,Hkv,D]) with
+    the prompt's K/V in rows 0..S-1 and zeros up to cap = max_len or S."""
+    _no_ring(cfg)
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    S = x.shape[-2]
+    q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device))
+    out = mha_reference(q, k, v, causal=True, window=window)
+    y = _out_proj(out, p["wo"])
+    pad = (max_len or S) - S
+    return y, {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+               "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _write_rows(c, rows, idx, new, write):
+    """c[rows, idx] = new, in place; rows where `write` is False keep their
+    old entry (the reference's where-masked cache update)."""
+    new = new.to(c.dtype)
+    if write is not None:
+        new = torch.where(write[:, None, None], new, c[rows, idx])
+    c[rows, idx] = new
+
+
+def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, *, window: int = 0,
+                write: Optional[torch.Tensor] = None):
+    """One-token decode. x_t: [B,1,d]; pos: int or per-row [B] positions
+    (slot-based continuous batching: each row sits at its own depth in its
+    own cache slot). cache: {'k','v'} [B,cap,Hkv,D], updated in place at
+    row b's position pos[b] where write[b] (all rows when write is None).
+    Returns y [B,1,d]."""
+    attn_decode.calls += 1
+    h = rmsnorm(p["norm"], x_t, cfg.norm_eps)
+    B = x_t.shape[0]
+    pos_rows = per_row(pos, B, x_t.device)
+    q, k, v = _project_qkv(p, h, cfg, pos_rows[:, None])
+    cap = cache["k"].shape[1]
+    rows = torch.arange(B, device=x_t.device)
+    # a frozen row may sit at pos == cap; its (masked) write is clamped
+    idx = pos_rows.long().clamp(max=cap - 1)
+    _write_rows(cache["k"], rows, idx, k[:, 0], write)
+    _write_rows(cache["v"], rows, idx, v[:, 0], write)
+    out = flash_decode(q, cache["k"], cache["v"], kv_valid=pos_rows + 1,
+                       q_offset=pos_rows, window=window)
+    return _out_proj(out, p["wo"])
+
+
+# decode-attention calls, counted where the engines make them; on CUDA
+# every one must be a flash-decode kernel launch
+attn_decode.calls = 0
+
+
+def attn_extend(p, x_c, cache, start, cfg: ModelConfig, *, window: int = 0):
+    """Chunked-prefill continuation: append a chunk of C tokens per row to
+    a partially filled cache, in place. x_c: [B,C,d]; start: int or [B]
+    tokens already cached per row (start + C <= cap). Rows past a
+    request's real prompt length ride along as padding: their K/V land
+    above every real query's causal horizon and are overwritten by later
+    writes at the true positions. Returns y [B,C,d]."""
+    h = rmsnorm(p["norm"], x_c, cfg.norm_eps)
+    B, C, _ = x_c.shape
+    start_rows = per_row(start, B, x_c.device).long()
+    positions = start_rows[:, None] + torch.arange(C, device=x_c.device)[None, :]
+    q, k, v = _project_qkv(p, h, cfg, positions)
+    rows = torch.arange(B, device=x_c.device)[:, None]
+    cache["k"][rows, positions] = k.to(cache["k"].dtype)
+    cache["v"][rows, positions] = v.to(cache["v"].dtype)
+    out = mha_reference(q, cache["k"], cache["v"], causal=True, window=window,
+                        q_offset=start_rows, kv_valid=start_rows + C)
+    return _out_proj(out, p["wo"])
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, cap: int, device):
+    _no_ring(cfg)
+    shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
+    dt = compute_dtype(cfg)
+    # two buffers: caches are written in place
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    dt = compute_dtype(cfg)
+    return {
+        "wg": param(gen, (d, f), dtype=dt),
+        "wu": param(gen, (d, f), dtype=dt),
+        "wd": param(gen, (f, d), dtype=dt),
+        "norm": rmsnorm_params(gen, d),
+    }
+
+
+def mlp_forward(p, x, cfg: ModelConfig):
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    return (F.silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]

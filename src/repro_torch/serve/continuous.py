@@ -1,0 +1,317 @@
+"""Continuous-batching serve engine (port of `repro.serve.continuous`): a
+fixed pool of cache *slots* shared by requests that arrive, prefill in
+chunks, decode, and leave.
+
+  * Slot pool. Tower and server KV caches are allocated once with shape
+    [slots, cap, ...], cap = max_len rounded up to a chunk multiple. Each
+    slot carries device-side scalars: pos (tokens cached), tok (last
+    sampled token), client (which tower serves it), remaining (tokens
+    still to emit), n_out, a sampling key and a temperature, plus a
+    [slots, cap] output buffer. A request is admitted by streaming its
+    prompt through `_extend` in fixed-size chunks and evicted by the host
+    marking the slot free; the next occupant's first chunk zeroes the
+    slot's caches.
+
+  * `_decode` — the hot path. For each client m the tower runs over ALL
+    slots with the view of tower m (static shapes, rows independent) and
+    only the rows whose client is m are kept; the reference instead
+    gathers a copy of each slot's tower per step, which at full width
+    would copy every tower once per slot per step. One batched server
+    decode over all slots follows, then sampling on the device (no
+    device->host sync per token). Inactive slots ride along, but their
+    caches are frozen: decode writes K/V in place only for active rows
+    (for the tower, active rows of that client).
+
+  * `_extend` — chunked prefill of ONE request into its slot, through
+    views of the slot's caches and of its client's tower. The final chunk
+    samples the request's first output token at its last prompt position.
+
+  * Host scheduler. `submit()` queues requests; `run()` loops: admit at
+    most one prefill chunk per iteration (chunked prefill interleaved with
+    the running decode batch), then one decode step if any slot is
+    active. Bookkeeping is host-mirrored, so the loop never waits on the
+    device; finished rows are copied out on the device and brought to the
+    host once at the end.
+
+Greedy decoding is token-for-token identical to the sequential engine per
+request. Caches are written in place (the reference's are immutable); the
+freeze above and the zeroing at admission keep its semantics.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.split import client_view
+from repro_torch.models.registry import Model
+from repro_torch.serve.engine import check_params_device
+from repro_torch.serve.sampling import fold_in, sample
+from repro_torch.utils.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+
+@dataclass
+class Request:
+    """One generation request. `key` overrides the engine-derived sampling
+    key (used by ServeEngine.generate for rng-reproducible sampling)."""
+
+    id: int
+    client: int
+    tokens: Sequence[int]
+    new_tokens: int
+    temperature: float = 0.0
+    key: Optional[int] = None
+
+
+@dataclass
+class _Admission:
+    """Host-side progress of an in-flight chunked prefill."""
+
+    req: Request
+    slot: int
+    done_tokens: int = 0
+
+
+class ContinuousEngine:
+    """Slot-based continuous batching over a split (tower/server) model."""
+
+    def __init__(self, model: Model, params, num_clients: int, max_len: int,
+                 *, slots: int = 8, chunk: int = 8, seed: int = 0,
+                 device="cuda"):
+        if model.cfg.decode_long_window:
+            raise ValueError(
+                "continuous batching does not support ring KV caches"
+                " (decode_long_window); use the sequential engine")
+        self.device = dev = check_params_device(params, device)
+        self.model = model
+        self.params = params
+        self.M = num_clients
+        self.max_len = max_len
+        self.slots = slots
+        self.chunk = chunk
+        # capacity: chunk multiple >= max_len, so chunked extend writes a
+        # full [chunk] block without running past the cache
+        self.cap = -(-max_len // chunk) * chunk
+        self.seed = seed
+
+        S, cap = slots, self.cap
+        self._tcache = model.init_tower_cache(S, cap, dev)
+        self._scache = model.init_server_cache(S, cap, dev)
+
+        def zeros(dtype, *shape):
+            return torch.zeros((S,) + shape, dtype=dtype, device=dev)
+
+        self._state = {
+            "pos": zeros(torch.int32),
+            "tok": zeros(torch.int32),
+            "client": zeros(torch.int32),
+            "remaining": zeros(torch.int32),
+            "n_out": zeros(torch.int32),
+            "key": zeros(torch.int64),
+            "temp": zeros(torch.float32),
+            "out": zeros(torch.int32, cap),
+        }
+        # AND of isfinite over every logits row the engine has sampled from
+        self._finite = torch.ones((), dtype=torch.bool, device=dev)
+
+        # host mirrors (never read back from the device for scheduling)
+        self._free: List[int] = list(range(slots))
+        self._slot_remaining = [0] * slots
+        self._slot_emitted = [0] * slots
+        self._slot_req: List[Optional[Request]] = [None] * slots
+        self._pending: List[Request] = []
+        self._admitting: Optional[_Admission] = None
+        self._results: Dict[int, torch.Tensor] = {}
+        self.stats = {"extend_steps": 0, "decode_steps": 0, "admitted": 0,
+                      "decode_slot_tokens": 0}
+
+    # ------------------------------------------------------------------
+    # device steps
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _decode(self, sampling: bool):
+        model, st, cap = self.model, self._state, self.cap
+        towers, server = self.params["towers"], self.params["server"]
+        active = st["remaining"] > 0
+        tokens = st["tok"].long()[:, None]
+        h = None
+        for m in range(self.M):
+            mine = st["client"] == m
+            h_m = model.tower_decode(client_view(towers, m), tokens,
+                                     self._tcache, st["pos"],
+                                     write=active & mine)
+            h = h_m if h is None else torch.where(mine[:, None, None], h_m, h)
+        logits = model.server_decode(server, h, self._scache, st["pos"],
+                                     write=active)
+        lg = logits[:, -1, :]
+        self._finite &= torch.isfinite(lg).all()
+
+        chosen = torch.argmax(lg, dim=-1).to(torch.int32)
+        if sampling:
+            # per-slot key folded with the slot's position
+            keys = fold_in(st["key"], st["pos"].long())
+            sampled = sample(lg, st["temp"], keys)
+            chosen = torch.where(st["temp"] > 0.0, sampled, chosen)
+        tok = torch.where(active, chosen, st["tok"])
+
+        rows = torch.arange(self.slots, device=self.device)
+        idx = st["n_out"].long().clamp(max=cap - 1)  # frozen rows may sit at cap
+        st["out"][rows, idx] = torch.where(active, tok, st["out"][rows, idx])
+        act = active.to(torch.int32)
+        st["tok"] = tok
+        st["pos"] += act
+        st["remaining"] -= act
+        st["n_out"] += act
+
+    @torch.no_grad()
+    def _extend(self, chunk_tokens: np.ndarray, slot: int, req: Request,
+                start: int, n_valid: int, is_last: bool, req_key: int):
+        model, st = self.model, self._state
+        # batch-1 views of this slot's caches: written in place; the first
+        # chunk zeroes them so the previous occupant can never leak through
+        tc = tree_map(lambda x: x[slot:slot + 1], self._tcache)
+        sc = tree_map(lambda x: x[slot:slot + 1], self._scache)
+        if start == 0:
+            for x in tree_leaves(tc) + tree_leaves(sc):
+                x.zero_()
+        tokens = torch.as_tensor(chunk_tokens, dtype=torch.int64)[None, :]
+        if self.device.type == "cuda":  # pinned: the copy does not stall the host
+            tokens = tokens.pin_memory().to(self.device, non_blocking=True)
+        h = model.tower_extend(client_view(self.params["towers"], req.client),
+                               tokens, tc, start)
+        logits = model.server_extend(self.params["server"], h, sc, start,
+                                     n_valid)
+
+        st["pos"][slot] = start + n_valid
+        st["client"][slot] = req.client
+        st["remaining"][slot] = req.new_tokens - 1 if is_last else 0
+        st["n_out"][slot] = 1 if is_last else 0
+        st["key"][slot] = req_key
+        st["temp"][slot] = req.temperature
+        if is_last:
+            # sample the first output token at the last real prompt
+            # position (same key schedule as _decode)
+            lg = logits[:, -1, :]
+            self._finite &= torch.isfinite(lg).all()
+            if req.temperature > 0.0:
+                key = torch.full((1,), fold_in(req_key, start + n_valid - 1),
+                                 dtype=torch.int64, device=self.device)
+                tok0 = sample(lg, req.temperature, key)[0]
+            else:
+                tok0 = torch.argmax(lg[0]).to(torch.int32)
+            st["tok"][slot] = tok0
+            st["out"][slot, 0] = tok0
+
+    # ------------------------------------------------------------------
+    # host scheduler
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request):
+        L = len(req.tokens)
+        if L < 1 or L + req.new_tokens - 1 > self.cap:
+            raise ValueError(
+                f"request {req.id}: prompt {L} + new {req.new_tokens} exceeds"
+                f" capacity {self.cap}")
+        if not (0 <= req.client < self.M):
+            raise ValueError(f"request {req.id}: client {req.client} not in"
+                             f" [0, {self.M})")
+        self._pending.append(req)
+
+    def _issue_chunk(self):
+        """Run one extend step for the in-flight admission (starting one if
+        a slot is free). Returns True if a chunk was issued."""
+        if self._admitting is None:
+            if not self._pending or not self._free:
+                return False
+            req = self._pending.pop(0)
+            self._admitting = _Admission(req, self._free.pop(0))
+            self.stats["admitted"] += 1
+        adm = self._admitting
+        req, C = adm.req, self.chunk
+        L = len(req.tokens)
+        start = adm.done_tokens
+        n_valid = min(C, L - start)
+        is_last = start + n_valid >= L
+        chunk = np.zeros((C,), np.int64)
+        chunk[:n_valid] = np.asarray(req.tokens[start:start + n_valid])
+        key = req.key if req.key is not None else fold_in(self.seed, req.id)
+        self._extend(chunk, adm.slot, req, start, n_valid, is_last, key)
+        adm.done_tokens = start + n_valid
+        self.stats["extend_steps"] += 1
+        if is_last:
+            s = adm.slot
+            self._slot_req[s] = req
+            self._slot_remaining[s] = req.new_tokens - 1
+            self._slot_emitted[s] = 1
+            self._admitting = None
+            self._maybe_finish(s)
+        return True
+
+    def _maybe_finish(self, s: int):
+        if self._slot_req[s] is not None and self._slot_remaining[s] == 0:
+            req = self._slot_req[s]
+            n = self._slot_emitted[s]
+            # device-side copy (the slot's buffer row is reused); brought
+            # to the host once in run()
+            self._results[req.id] = self._state["out"][s, :n].clone()
+            self._slot_req[s] = None
+            self._free.append(s)
+
+    def _decode_once(self):
+        live = [s for s in range(self.slots)
+                if self._slot_req[s] is not None and self._slot_remaining[s] > 0]
+        if not live:
+            return False
+        self._decode(any(self._slot_req[s].temperature > 0.0 for s in live))
+        self.stats["decode_steps"] += 1
+        for s in live:
+            self._slot_remaining[s] -= 1
+            self._slot_emitted[s] += 1
+            self._maybe_finish(s)
+        self.stats["decode_slot_tokens"] += len(live)
+        return True
+
+    def run(self):
+        """Process every submitted request to completion. Returns
+        {request id -> int32 array of new_tokens sampled tokens}."""
+        while True:
+            issued = self._issue_chunk()
+            decoded = self._decode_once()
+            if not issued and not decoded:
+                break
+        out = {rid: toks.cpu().numpy() for rid, toks in self._results.items()}
+        self._results.clear()
+        return out
+
+    def logits_finite(self) -> bool:
+        """Whether every logits row sampled so far was finite (syncs)."""
+        return bool(self._finite)
+
+    # ------------------------------------------------------------------
+    # benchmark entry points (phase-separated, no interleaving)
+    # ------------------------------------------------------------------
+
+    def sync(self):
+        """Block until all queued device work is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefill_all(self) -> int:
+        """Admit every pending request a slot is free for (chunked prefill
+        only, no decode). Returns the number of extend steps issued."""
+        n = 0
+        while self._issue_chunk():
+            n += 1
+        return n
+
+    def decode_all(self) -> int:
+        """Decode until no slot is active. Returns slot-tokens emitted."""
+        t0 = self.stats["decode_slot_tokens"]
+        while self._decode_once():
+            pass
+        return self.stats["decode_slot_tokens"] - t0
