@@ -7,5 +7,5 @@ from repro_torch.configs.base import (
     register,
 )
 
-# importing the modules registers their configs (only the ported slice's)
-from repro_torch.configs import gemma3_12b  # noqa: F401
+# importing the modules registers their configs (only the ported slices')
+from repro_torch.configs import gemma3_12b, paper_mlp, paper_resnet  # noqa: F401

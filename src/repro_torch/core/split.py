@@ -26,3 +26,9 @@ def stack_towers(init_tower: Callable, gen: torch.Generator,
 def client_view(towers: PyTree, m: int) -> PyTree:
     """Client m's tower: a view into each stacked leaf (no copy)."""
     return tree_map(lambda x: x[m], towers)
+
+
+def is_client_path(path: str) -> bool:
+    """True for a leaf of the client towers (paths from
+    `utils.tree.tree_map_with_path`)."""
+    return path.startswith("towers")

@@ -22,7 +22,9 @@ BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# ptxas's report (registers, shared memory, spills) of each build, by name
+# ptxas's report (registers, shared memory, spills) of each library, by
+# name: written beside the library when it is built, read back when a
+# cached library is loaded
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -44,6 +46,7 @@ def load_cuda_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     for src in sources:
         h.update(Path(src).read_bytes())
     lib_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".ptxas.txt")
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -54,6 +57,8 @@ def load_cuda_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n"
                                f"{proc.stderr}")
-        BUILD_LOGS[name] = proc.stderr
+        # the report first: a library on disk always has its report beside it
+        log_path.write_text(proc.stderr)
         os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    BUILD_LOGS[name] = log_path.read_text() if log_path.exists() else ""
     return ctypes.CDLL(str(lib_path))

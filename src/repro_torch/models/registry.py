@@ -1,7 +1,14 @@
-"""Model assembly (port of `repro.models.registry` for `family == "dense"`):
-the model is built already split into a client tower (embedding + bottom
-`split_layers` blocks) and a server stack (the other blocks + final norm +
-head), with the serving hooks of the reference's `Model`.
+"""Model assembly (port of `repro.models.registry`): every model is built
+already split into a client tower and a server stack.
+
+Training hooks, for the paper classifiers (`family` "mlp" / "resnet",
+`models/classifiers.py`), on `[b, ...]` inputs of one client:
+
+    tower_forward(tp, {"image": ...})   -> {"h": smashed}
+    server_forward(sp, {"h": ...})      -> (logits [B, C], aux loss)
+
+Serving hooks, for `family == "dense"` (embedding + bottom `split_layers`
+blocks in the tower; the other blocks + final norm + head on the server):
 
     tower_prefill(tp, tokens [B,S], max_len)      -> (h [B,S,d], tcache)
     server_prefill(sp, h, max_len)                -> (logits [B,1,V] f32, scache)
@@ -10,12 +17,13 @@ head), with the serving hooks of the reference's `Model`.
     tower_extend(tp, tokens [B,C], tcache, start) -> h [B,C,d]
     server_extend(sp, h, scache, start, n_valid)  -> logits [B,1,V] f32
 
-The reference passes and returns `{"h": ...}` smashed dicts and new
-caches; the port passes the activation tensor and updates caches in place.
+In serving, the reference passes and returns `{"h": ...}` smashed dicts
+and new caches; the port passes the activation tensor and updates caches
+in place. Training keeps the reference's `{"h": ...}` dicts.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -27,14 +35,18 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init_tower: Callable  # gen -> params (ONE client tower)
     init_server: Callable  # gen -> params
-    tower_prefill: Callable
-    server_prefill: Callable
-    tower_decode: Callable
-    server_decode: Callable
-    init_tower_cache: Callable  # (batch, cap, device) -> cache
-    init_server_cache: Callable
-    tower_extend: Callable
-    server_extend: Callable
+    # training (classifier families)
+    tower_forward: Optional[Callable] = None
+    server_forward: Optional[Callable] = None
+    # serving (dense family)
+    tower_prefill: Optional[Callable] = None
+    server_prefill: Optional[Callable] = None
+    tower_decode: Optional[Callable] = None
+    server_decode: Optional[Callable] = None
+    init_tower_cache: Optional[Callable] = None  # (batch, cap, device) -> cache
+    init_server_cache: Optional[Callable] = None
+    tower_extend: Optional[Callable] = None
+    server_extend: Optional[Callable] = None
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:
@@ -107,4 +119,12 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "dense":
         return _decoder_model(cfg)
+    if cfg.family == "mlp":
+        from repro_torch.models.classifiers import mlp_model
+
+        return mlp_model(cfg)
+    if cfg.family == "resnet":
+        from repro_torch.models.classifiers import resnet_model
+
+        return resnet_model(cfg)
     raise ValueError(f"family {cfg.family!r} is not ported yet")

@@ -34,6 +34,8 @@ def param(
         return truncated_normal(gen, shape, 0.02, dtype)
     if init == "fan_in":
         return truncated_normal(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=gen.device)
     raise ValueError(f"unknown init {init!r}")

@@ -1,6 +1,10 @@
 """Weight transfer from the JAX reference: `params_from_jax` takes the
 reference's stripped `{"towers", "server"}` parameter tree as numpy arrays
-(towers stacked `[M, ...]`) and returns the port's tree:
+(towers stacked `[M, ...]`) and returns the port's tree.
+
+For the paper classifiers (`family` "mlp" / "resnet") keys and layouts
+are kept as they are, every leaf in f32 (their `cfg.dtype`). For the
+decoder models:
 
   * keys are kept;
   * a `seg{i}` segment that the reference stacks along a layer axis (a
@@ -54,6 +58,9 @@ def _blocks(blocks, kinds, axis: int, device, cfg: ModelConfig):
 
 
 def params_from_jax(tree: PyTree, device, cfg: ModelConfig) -> PyTree:
+    if cfg.family in ("mlp", "resnet"):
+        return {"towers": convert_tree(tree["towers"], device, cfg),
+                "server": convert_tree(tree["server"], device, cfg)}
     kinds = cfg.layer_kinds
     split = cfg.split_layers
     towers, server = tree["towers"], tree["server"]

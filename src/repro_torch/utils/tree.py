@@ -23,3 +23,33 @@ def tree_leaves(tree: PyTree) -> List[Any]:
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def _join(path: str, key) -> str:
+    return f"{path}/{key}" if path else str(key)
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: PyTree,
+                       _path: str = "") -> PyTree:
+    """Map `fn(path, leaf)` over the leaves, with the reference's
+    '/'-joined path strings (dict keys and list indices), e.g.
+    "towers/stage0/b0/conv1/w"."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, _join(_path, k))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, _join(_path, i))
+                for i, v in enumerate(tree)]
+    return fn(_path, tree)
+
+
+def tree_leaves_with_path(tree: PyTree, _path: str = "") -> List[tuple]:
+    """[(path, leaf)] in `tree_leaves` order, paths as in
+    `tree_map_with_path`."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_leaves_with_path(v, _join(_path, k))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in tree_leaves_with_path(v, _join(_path, i))]
+    return [(_path, tree)]
