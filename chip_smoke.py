@@ -6,8 +6,9 @@
 Phases, each of which must pass (any failure exits non-zero):
 
   build   nvcc builds every kernel of the ported paths from the sources in
-          this checkout, all at once (K4 flash-decode and K1 mtsl_update,
-          for sm_90a), and prints each ptxas report.
+          this checkout, all at once (K4 flash-decode, K1 mtsl_update, K2
+          flash-attention and K3 ssd-scan, for sm_90a), and prints each
+          ptxas report.
   kernel  K4 against its plain PyTorch version on the card at the serving
           path's shapes (4 slots, cap 320) and at 8 rows with ragged
           kv_valid, cap in {512, 4096}, window in {0, 1024}: bf16 within
@@ -62,6 +63,53 @@ Phases, each of which must pass (any failure exits non-zero):
           there). Then two 20-round card runs from one seed under
           torch.use_deterministic_algorithms(True): bit-equal parameters.
 
+  k2      K2 against its plain version (mha_reference) on the LM path's
+          shape (zamba2-7b's shared attention: B = 2, H = 32, S = 2048,
+          D = 112, bf16, causal) and with GQA, a window, a ragged S and in
+          f32: bf16 within 2e-2, f32 within 2e-5 (absolute plus relative,
+          as tests/test_kernels.py holds them). Times the kernel, the plain
+          version and F.scaled_dot_product_attention with the same mask (a
+          yardstick only: the port never calls it), each behind an L2
+          flush; the bound is the larger of the bytes (q, k, v, out once)
+          over 3.35 TB/s and 4 D flops per visible (query, key) pair over
+          the dtype's peak.
+  k3      K3 against its plain version (ssd_reference) on zamba2-7b's
+          server shape (B = 2, L = 2048, H = 112, P = N = 64, chunk 128,
+          bf16), its tower shape (B = 1), mamba2-130m's (B = 16, L = 256,
+          H = 24, P = 64, N = 128) and in f32 with an initial state: y
+          within 5e-2 in bf16 and 2e-5 in f32 (absolute plus relative: y
+          reaches 8 and more, where one bf16 rounding step is 0.0625), the
+          final state within 1e-4 of its scale. Times the kernel and the plain version (no PyTorch
+          call computes the SSD scan); the bound is the larger of the
+          bytes (x, dt, B, C in, y and the state out, once) over 3.35 TB/s
+          and the chunked algorithm's flops at the reference's chunk over
+          the dtype's peak.
+  lm-train  zamba2-7b at full width and depth (81 layers, d_model 3584),
+          M = 2 clients, b = 1, S = 2048, SGD, 3 mtsl rounds through
+          train/loop.py::train and the registry, on
+          client_batches(MultiTaskLMSource(vocab_size=4096)): the model's
+          vocabulary stays 32,000, the data's is cut because the source
+          builds dense [V, V] f64 chains (8.2 GB each at 32,000). Checks a
+          finite loss every round, K2 and K3 launches per round equal to
+          2 (remat: forward + recompute) x (M x tower layers + server
+          layers) of each kind, and no plain K2 / K3 forward on the card.
+          Reports s per round, peak memory, and a torch.profiler pass over
+          one more round (device busy share, top kernels).
+  lm-learn  mamba2-130m at its full config, M = 4, b = 4, S = 256, adamw at
+          lr 3e-3 (the LM example's), 100 rounds on a 4096-token
+          MultiTaskLMSource: the loss must fall; reports each task's
+          held-out loss beside its chain's entropy floor, the host time to
+          draw one round's tokens, and a torch.profiler pass over one more
+          round.
+  lm-parity  the smoke zamba2-7b and mamba2-130m rounds (f32, SGD lr 0.1,
+          masked participation), 3 rounds on the card (K2, K3, K1) against
+          the CPU (plain versions) from one initial tree and one batch
+          stream: losses within 1e-5 relative, parameters within 1e-4;
+          then two seeded card runs of each under
+          torch.use_deterministic_algorithms(True, warn_only=True): bit-equal
+          parameters (the ops that have no deterministic algorithm are
+          reported).
+
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line, and as its last line `{"ok": true, "device": {...}}`. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
@@ -76,6 +124,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -88,6 +137,32 @@ K4 = {"name": "flash_decode", "route": "cuda",
 K1 = {"name": "mtsl_update", "route": "cuda",
       "source": "src/repro_torch/kernels/mtsl_update/csrc/mtsl_update.cu",
       "replaces": "src/repro/kernels/mtsl_update/kernel.py:25"}
+K2 = {"name": "flash_attention", "route": "cuda",
+      "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+      "replaces": "src/repro/kernels/flash_attention/kernel.py:97"}
+K3 = {"name": "ssd_scan", "route": "cuda",
+      "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+      "replaces": "src/repro/kernels/ssd_scan/kernel.py:86"}
+K2_CASES = [  # (case, B, S, Hq, Hkv, D, window, dtype); the first is the path's
+    ("zamba2_path", 2, 2048, 32, 32, 112, 0, "bfloat16"),
+    ("gqa4_swa1024", 2, 2048, 32, 8, 128, 1024, "bfloat16"),
+    ("ragged_s1000", 2, 1000, 16, 16, 112, 0, "bfloat16"),
+    ("f32_s512", 1, 512, 8, 4, 112, 0, "float32"),
+]
+# K2's bf16 outputs are also held as a whole: the elementwise limit above
+# lets one bf16 step through at |out| ~ 1, which at S = 2048 (|out| ~ 0.05)
+# would hide a tiling fault worth a tenth of a typical value
+K2_REL_L2 = {"bfloat16": 5e-3, "float32": 2e-5}
+K3_CASES = [  # (case, B, L, H, P, N, chunk, dtype, initial state)
+    ("zamba2_server", 2, 2048, 112, 64, 64, 128, "bfloat16", False),
+    ("zamba2_tower", 1, 2048, 112, 64, 64, 128, "bfloat16", False),
+    ("mamba2_130m", 16, 256, 24, 64, 128, 128, "bfloat16", False),
+    ("f32_state", 2, 512, 8, 64, 64, 128, "float32", True),
+]
+LM_TRAIN = {"arch": "zamba2-7b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
+            "lr": 0.05, "data_vocab": 4096}
+LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 100,
+            "lr": 3e-3, "data_vocab": 4096, "log_every": 10}
 # (case, shape, rows, dtype) beyond the train paths' own leaves
 K1_FLAT_CASES = [
     ("flat_2^26_f32", (1 << 26,), 1, "float32"),
@@ -294,10 +369,13 @@ def build_phase() -> dict:
     """Build every kernel at once, one nvcc per source; the registers lines
     of each ptxas report."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as k2_ops
     from repro_torch.kernels.flash_decode import ops as k4_ops
     from repro_torch.kernels.mtsl_update import ops as k1_ops
+    from repro_torch.kernels.ssd_scan import ops as k3_ops
 
-    libs = {"flash_decode": k4_ops._lib, "mtsl_update": k1_ops._lib}
+    libs = {"flash_decode": k4_ops._lib, "mtsl_update": k1_ops._lib,
+            "flash_attention": k2_ops._lib, "ssd_scan": k3_ops._lib}
     with ThreadPoolExecutor(len(libs)) as ex:
         for fut in [ex.submit(fn) for fn in libs.values()]:
             fut.result()
@@ -707,6 +785,419 @@ def train_parity_phase(torch):
             "repeat_bit_equal": True}
 
 
+def _allclose(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol * |want| everywhere (numpy's assert_allclose
+    with atol = rtol = tol, as tests/test_kernels.py holds the kernels)."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (+ window) mask lets through, per head."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def k2_phase(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attn_mask, mha_reference
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tol = {"bfloat16": 2e-2, "float32": 2e-5}
+    rows = []
+    for name, B, S, Hq, Hkv, D, window, dt in K2_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
+                   for h in (Hq, Hkv, Hkv))
+        out = flash_attention(q, k, v, True, window)
+        ref = mha_reference(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        if not (_allclose(out, ref, tol[dt]) and rel_l2 <= K2_REL_L2[dt]):
+            raise AssertionError(
+                f"K2 {name}: kernel vs plain beyond {tol[dt]} (abs + rel; max "
+                f"|diff| {err}) or ||diff|| / ||ref|| {rel_l2} > {K2_REL_L2[dt]}")
+        nbytes = 2 * (B * S * Hq * D + B * S * Hkv * D) * q.element_size()
+        flops = 4 * D * Hq * B * _visible_pairs(S, window)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if window:
+            amask = attn_mask(S, S, causal=True, window=window, device=dev)
+
+            def library():
+                return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
+                                                      enable_gqa=True)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                      enable_gqa=True)
+        row = {
+            "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+            "window": window, "dtype": dt, "max_abs_err": err, "rel_l2_err": rel_l2,
+            "ms": _median_ms(lambda: flash_attention(q, k, v, True, window), 20, flush),
+            "plain_ms": _median_ms(
+                lambda: mha_reference(q, k, v, causal=True, window=window), 5, flush),
+            "library_ms": _median_ms(library, 20, flush),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes,
+        }
+        rows.append(row)
+        print(f"  K2 {name}: err {err:.3g} (l2 {rel_l2:.3g})  kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del q, k, v, out, ref
+    del flush
+    return rows
+
+
+def k3_phase(torch, dev):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {"bfloat16": 5e-2, "float32": 2e-5}
+    rows = []
+    for name, B, L, H, P, N, chunk, dt, with_state in K3_CASES:
+        dtype = getattr(torch, dt)
+
+        def rnd(*shape, lo=None, hi=None, d=torch.float32):
+            if lo is None:
+                return torch.randn(*shape, generator=gen, device=dev).to(d)
+            return torch.rand(*shape, generator=gen, device=dev) * (hi - lo) + lo
+
+        x = rnd(B, L, H, P, d=dtype)
+        dtv = rnd(B, L, H, lo=0.01, hi=0.2)
+        A = -rnd(H, lo=0.5, hi=2.0)
+        Bm, Cm = rnd(B, L, N, d=dtype), rnd(B, L, N, d=dtype)
+        h0 = rnd(B, H, P, N) if with_state else None
+        y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
+        yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
+        torch.cuda.synchronize()
+        err = (y.float() - yr.float()).abs().max().item()
+        serr = (st - sr).abs().max().item()
+        if not (_allclose(y, yr, tol[dt]) and serr <= 1e-4):
+            raise AssertionError(f"K3 {name}: y beyond {tol[dt]} (abs + rel; max "
+                                 f"|diff| {err}) or state max |diff| {serr} > 1e-4")
+        elt = x.element_size()
+        nbytes = (2 * B * L * H * P + 2 * B * L * N) * elt + 4 * (B * L * H + H) \
+            + 4 * B * H * P * N * (2 if with_state else 1)
+        flops = B * H * 2 * L * (chunk * N + chunk * P // 2 + 2 * P * N)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        row = {
+            "case": name, "B": B, "L": L, "H": H, "P": P, "N": N, "chunk": chunk,
+            "dtype": dt, "initial_state": with_state, "max_abs_err": err,
+            "state_abs_err": serr,
+            "ms": _median_ms(lambda: ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk,
+                                              initial_state=h0), 20, flush),
+            "plain_ms": _median_ms(lambda: ssd_reference(
+                x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0), 5, flush),
+            "library_ms": None,  # no PyTorch call computes the SSD scan
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes,
+        }
+        rows.append(row)
+        print(f"  K3 {name}: err y {err:.3g} state {serr:.3g}  kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del x, dtv, Bm, Cm, y, st, yr, sr
+    del flush
+    return rows
+
+
+def _lm_counts(torch):
+    """The LM path's counters: kernel launches and plain forwards on CUDA
+    tensors of K2 and K3, and K1's launches."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_reference
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    return {"k2": flash_attention, "k3": ssd_scan, "k1": mtsl_update_,
+            "k2_plain": mha_reference, "k3_plain": ssd_reference}
+
+
+def _reset_counts(torch):
+    for name, fn in _lm_counts(torch).items():
+        setattr(fn, "cuda_calls" if name.endswith("plain") else "launches", 0)
+
+
+def _read_counts(torch):
+    return {name: getattr(fn, "cuda_calls" if name.endswith("plain") else "launches")
+            for name, fn in _lm_counts(torch).items()}
+
+
+def _lm_launches_per_round(cfg, M: int, microbatches: int = 1) -> dict:
+    """K2 and K3 launches one mtsl round makes: each shared_attn layer runs
+    one attention and one Mamba2 scan, each mamba layer one scan; the
+    towers run once per client; under remat every unit's forward runs again
+    in the backward."""
+    kinds = cfg.layer_kinds
+    tower, server = kinds[:cfg.split_layers], kinds[cfg.split_layers:]
+    remat = 1 if cfg.remat == "none" else 2
+    n = remat * microbatches
+
+    def count(ks, *names):
+        return sum(k in names for k in ks)
+
+    return {"k2": n * (M * count(tower, "shared_attn", "full", "swa")
+                       + count(server, "shared_attn", "full", "swa")),
+            "k3": n * (M * count(tower, "mamba", "shared_attn")
+                       + count(server, "mamba", "shared_attn"))}
+
+
+_KERNEL_KINDS = (  # (kind, substrings of the kernel's name), first match wins
+    ("k2", ("flash_attention",)), ("k3", ("ssd_scan",)), ("k1", ("mtsl_update",)),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("reduce", ("reduce", "softmax", "logsumexp", "scan")),
+    ("copy_cast", ("copy", "cat", "index")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _profile_round(torch, rf, state, batch, sched):
+    """torch.profiler over one round: device busy share and top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = rf(state, batch, sched)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def share(tag):
+        return sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
+
+    by_kind = {}
+    for e in kernels:  # the port's kernels by name, PyTorch's by family
+        name = e.key.lower()
+        kind = next((k for k, tags in _KERNEL_KINDS if any(t in name for t in tags)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    return state, {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "k2_device_ms": share("flash_attention"),
+        "k3_device_ms": share("ssd_scan"),
+        "k1_device_ms": share("mtsl_update"),
+        "device_ms_by_kind": by_kind,
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                         "calls": e.count} for e in kernels[:12]],
+    }
+
+
+def lm_train_phase(torch, dev):
+    """zamba2-7b at full width and depth, trained through the loop and the
+    registry (see the module docstring), with the K2 / K3 counts set to 0
+    just before and read just after."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.schedule import full_schedule
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, stage_batch, train
+    from repro_torch.utils.tree import tree_leaves
+
+    c = LM_TRAIN
+    cfg = get_config(c["arch"])
+    M, rounds = c["M"], c["rounds"]
+    model = build_model(cfg)
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    batches = client_batches(src, c["b"], seed=0, seq_len=c["S"])
+    tcfg = TrainConfig(steps=rounds, lr=c["lr"], log_every=1, seed=0, device=dev.type)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    state, hist = train(model, sgd(c["lr"]), batches, tcfg, M,
+                        component_lr=server_scaled(M), log=lambda _: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(torch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [e["loss"] for e in hist]
+    if len(hist) != rounds or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm-train: losses {losses}")
+    want = _lm_launches_per_round(cfg, M)
+    leaves = len(tree_leaves(state.params))
+    if not (counts["k2"] == want["k2"] * rounds and counts["k3"] == want["k3"] * rounds
+            and counts["k2_plain"] == counts["k3_plain"] == 0
+            and counts["k1"] == leaves * rounds):
+        raise AssertionError(f"lm-train: counts {counts}, want per round {want} "
+                             f"and K1 {leaves} x {rounds}, no plain forward")
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    times = [e["time"] for e in hist]
+    res = {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": rounds,
+           "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": n_params, "losses": losses,
+           "s_per_round": [times[0]] + [b - a for a, b in zip(times, times[1:])],
+           "peak_mem_gib": peak, "phase_s": wall, "counts": counts,
+           "launches_per_round": want, "k1_leaves": leaves}
+    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
+        lr=c["lr"], component_lr=server_scaled(M)))
+    batch = stage_batch(next(client_batches(src, c["b"], seed=1, seq_len=c["S"])), dev)
+    state, res["profile"] = _profile_round(torch, rf, state, batch, full_schedule(M, 1))
+    del state, batch
+    return res
+
+
+def lm_learn_phase(torch, dev):
+    """mamba2-130m at its full config learns the per-client chains."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.schedule import full_schedule
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainConfig, stage_batch, train
+
+    c = LM_LEARN
+    cfg = get_config(c["arch"])
+    M, rounds = c["M"], c["rounds"]
+    model = build_model(cfg)
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    tcfg = TrainConfig(steps=rounds, lr=c["lr"], log_every=c["log_every"], seed=0,
+                       device=dev.type)
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    state, hist = train(model, adamw(c["lr"]), client_batches(src, c["b"], seed=0,
+                                                              seq_len=c["S"]),
+                        tcfg, M, component_lr=server_scaled(M), log=lambda _: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(torch)
+    loss = np.array([e["loss"] for e in hist])
+    if not (np.isfinite(loss).all() and loss[-2:].mean() < loss[:2].mean()):
+        raise AssertionError(f"lm-learn: the loss did not fall: {loss.tolist()}")
+    want = _lm_launches_per_round(cfg, M)
+    if not (counts["k3"] == want["k3"] * rounds and counts["k3_plain"] == 0):
+        raise AssertionError(f"lm-learn: counts {counts}, want per round {want}")
+    held = stage_batch(next(client_batches(src, 8, seed=123, seq_len=c["S"])), dev)
+    ev = get_algorithm("mtsl").eval_fn(model, M)(state, held)
+    per = ev["per_task_loss"].cpu().numpy()
+    floors = np.array([src.entropy_floor(m) for m in range(M)])
+    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
+        optimizer=adamw(c["lr"]), component_lr=server_scaled(M)))
+    t0 = time.perf_counter()
+    batch = next(client_batches(src, c["b"], seed=1, seq_len=c["S"]))
+    data_ms = (time.perf_counter() - t0) * 1e3
+    state, profile = _profile_round(torch, rf, state, stage_batch(batch, dev),
+                                    full_schedule(M, 1))
+    del state
+    return {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": rounds,
+            "lr": c["lr"], "optimizer": "adamw",
+            "logged": [{"round": e["round"], "loss": e["loss"]} for e in hist],
+            "held_out_per_task_loss": per.tolist(), "entropy_floor": floors.tolist(),
+            "gap_to_floor": (per - floors).tolist(), "phase_s": wall,
+            "ms_per_round": (hist[-1]["time"] - hist[0]["time"]) / (rounds - 1) * 1e3,
+            "host_data_ms": data_ms, "counts": counts, "profile": profile}
+
+
+def _lm_parity_run(torch, arch, device, init, batches, rounds, seed_sched):
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.mtsl import TrainState
+    from repro_torch.core.schedule import ScheduleConfig, schedule_stream
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import stage_batch
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(arch, smoke=True)
+    M = cfg.num_clients
+    rf = get_algorithm("mtsl").round_fn(build_model(cfg), M, HParams(
+        lr=0.1, component_lr=server_scaled(M)))
+    state = TrainState(tree_map(lambda x: x.detach().to(device).clone()
+                                .requires_grad_(), init), (), 0)
+    scheds = schedule_stream(ScheduleConfig(participation_rate=0.5, seed=seed_sched), M, 1)
+    metrics = []
+    for batch, sched in zip(batches[:rounds], scheds):
+        state, m = rf(state, stage_batch(batch, device), sched)
+        metrics.append({"loss": float(m["loss"]),
+                        "per_task": m["per_task"].detach().cpu().tolist()})
+    return state, metrics
+
+
+def lm_parity_phase(torch):
+    """Smoke zamba2-7b and mamba2-130m: 3 rounds card vs CPU, then two
+    seeded card runs against each other (deterministic algorithms on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mtsl import init_state
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    out = {}
+    for arch in ("zamba2-7b", "mamba2-130m"):
+        cfg = get_config(arch, smoke=True)
+        M = cfg.num_clients
+        init = init_state(build_model(cfg), torch.Generator().manual_seed(4), M)
+        src = MultiTaskLMSource(vocab_size=cfg.vocab_size, num_clients=M, beta=0.5,
+                                seed=4)
+        batches = list(client_batches(src, 4, steps=3, seed=4, seq_len=64))
+        _reset_counts(torch)
+        gpu, mg = _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)
+        counts = _read_counts(torch)
+        cpu, mc = _lm_parity_run(torch, arch, "cpu", init, batches, 3, 4)
+        for r, (a, b) in enumerate(zip(mg, mc)):
+            if not abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]):
+                raise AssertionError(f"lm-parity {arch} round {r + 1}: card {a} vs CPU {b}")
+        cpu_leaves = dict(tree_leaves_with_path(cpu.params))
+        err, leaf = max(((x.detach().cpu() - cpu_leaves[k].detach()).abs().max().item(), k)
+                        for k, x in tree_leaves_with_path(gpu.params))
+        if not err <= 1e-4:
+            raise AssertionError(f"lm-parity {arch}: card vs CPU params differ by "
+                                 f"{err} at {leaf}")
+        want = _lm_launches_per_round(cfg, M)
+        if not (counts["k2"] == 3 * want["k2"] and counts["k3"] == 3 * want["k3"]
+                and counts["k2_plain"] == counts["k3_plain"] == 0):
+            raise AssertionError(f"lm-parity {arch}: counts {counts}, want {want} x 3")
+        # deterministic algorithms where PyTorch has them; an op without one
+        # (torch.cumsum on CUDA, in the plain SSD backward) only warns, and
+        # the warnings are reported
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                finals = [[x.detach().clone() for x in tree_leaves(
+                    _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)[0].params)]
+                    for _ in range(2)]
+            finally:
+                torch.use_deterministic_algorithms(False)
+        if not all(torch.equal(a, b) for a, b in zip(*finals)):
+            raise AssertionError(f"lm-parity {arch}: two seeded card runs differ")
+        nondet = sorted({str(w.message).split(".")[0][:100] for w in caught
+                         if "deterministic" in str(w.message)})
+        out[arch] = {"card": mg, "cpu": mc, "max_param_abs_diff": err,
+                     "worst_leaf": leaf, "counts": counts, "repeat_bit_equal": True,
+                     "ops_without_deterministic_algorithm": nondet}
+    return out
+
+
 def main() -> int:
     # cuBLAS reproducibility under use_deterministic_algorithms (tparity);
     # must be set before CUDA initialises
@@ -738,8 +1229,7 @@ def main() -> int:
         t0 = time.perf_counter()
         regs = build_phase()
         report["build_s"] = time.perf_counter() - t0
-        print(f"[build] flash_decode and mtsl_update in {report['build_s']:.1f} s",
-              flush=True)
+        print(f"[build] {', '.join(regs)} in {report['build_s']:.1f} s", flush=True)
         for name, lines in regs.items():
             print(f"  ptxas {name}: {lines}", flush=True)
 
@@ -750,6 +1240,15 @@ def main() -> int:
         print("[k1] K1 vs its plain version (bit-equal)", flush=True)
         k1_cases = k1_phase(torch, dev)
         print("K1_CASES " + json.dumps(k1_cases), flush=True)
+
+        print("[k2] K2 vs its plain version", flush=True)
+        k2_cases = k2_phase(torch, dev)
+        print("K2_CASES " + json.dumps(k2_cases), flush=True)
+
+        print("[k3] K3 vs its plain version", flush=True)
+        k3_cases = k3_phase(torch, dev)
+        print("K3_CASES " + json.dumps(k3_cases), flush=True)
+        torch.cuda.empty_cache()
 
         print("[slice] gemma3-12b full width/depth, M=2, continuous", flush=True)
         report["slice"] = slice_phase(torch)
@@ -776,6 +1275,24 @@ def main() -> int:
               "repeatability", flush=True)
         report["tparity"] = train_parity_phase(torch)
         print("TPARITY " + json.dumps(report["tparity"]), flush=True)
+        torch.cuda.empty_cache()
+
+        print(f"[lm-train] {LM_TRAIN['arch']} full width/depth, M={LM_TRAIN['M']}, "
+              f"S={LM_TRAIN['S']}, SGD, {LM_TRAIN['rounds']} rounds", flush=True)
+        report["lm_train"] = lm_train_phase(torch, dev)
+        print("LM_TRAIN " + json.dumps(report["lm_train"]), flush=True)
+        torch.cuda.empty_cache()
+
+        print(f"[lm-learn] {LM_LEARN['arch']} full config, adamw, "
+              f"{LM_LEARN['rounds']} rounds", flush=True)
+        report["lm_learn"] = lm_learn_phase(torch, dev)
+        print("LM_LEARN " + json.dumps(report["lm_learn"]), flush=True)
+        torch.cuda.empty_cache()
+
+        print("[lm-parity] smoke zamba2-7b and mamba2-130m: card == CPU; seeded "
+              "repeatability", flush=True)
+        report["lm_parity"] = lm_parity_phase(torch)
+        print("LM_PARITY " + json.dumps(report["lm_parity"]), flush=True)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")
@@ -786,7 +1303,10 @@ def main() -> int:
     k1_case = next(c for c in k1_cases if c["case"] == K1_MAIN_CASE)
     k1 = dict(K1, launches=report["train"][0]["k1_launches"],
               **{key: k1_case[key] for key in keys})
-    print(json.dumps({"kernels": [k4, k1]}), flush=True)
+    lm_counts = report["lm_train"]["counts"]
+    k2 = dict(K2, launches=lm_counts["k2"], **{key: k2_cases[0][key] for key in keys})
+    k3 = dict(K3, launches=lm_counts["k3"], **{key: k3_cases[0][key] for key in keys})
+    print(json.dumps({"kernels": [k4, k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,4 +8,10 @@ from repro_torch.configs.base import (
 )
 
 # importing the modules registers their configs (only the ported slices')
-from repro_torch.configs import gemma3_12b, paper_mlp, paper_resnet  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    gemma3_12b,
+    mamba2_130m,
+    paper_mlp,
+    paper_resnet,
+    zamba2_7b,
+)

@@ -2,11 +2,13 @@
 INPUT_SHAPES and the registry), kept field-for-field identical so a config
 built in one package means the same model in the other.
 
-`use_flash_kernel` is kept for parity with the reference, but the port's
-decode attention does not read it: `models.layers.attn_decode` always goes
-through the flash-decode wrapper, which launches the CUDA kernel on CUDA
-tensors and runs its plain version on CPU tensors. (The reference's flag
-selects between its Pallas kernel and `mha_reference`; the two agree.)
+`use_flash_kernel` is kept for parity with the reference, but the port
+does not read it: decode attention always goes through the flash-decode
+wrapper (K4), the training forward's causal attention through the
+flash-attention wrapper (K2) and the Mamba2 scan through the SSD-scan
+wrapper (K3). Each launches its CUDA kernel on CUDA tensors and runs its
+plain version on CPU tensors. (The reference's flag selects between its
+Pallas kernels and their oracles; the two agree.)
 """
 from __future__ import annotations
 
@@ -112,8 +114,8 @@ class ModelConfig:
     fsdp: bool = False  # shard server params over the data axis too
     seq_shard: bool = False  # shard long activations over model axis
     microbatches: int = 1  # grad-accumulation steps inside train_step
-    # reference: Pallas flash kernels on/off. Port: not read by decode (see
-    # the module docstring); the training forward (K2) is a later slice
+    # reference: Pallas kernels on/off. Port: not read (see the module
+    # docstring)
     use_flash_kernel: bool = False
     attn_impl: str = "ref"  # "ref" (full scores) | "chunked" (online softmax)
     attn_chunk: int = 1024  # KV chunk for attn_impl="chunked"

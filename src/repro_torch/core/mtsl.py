@@ -1,9 +1,17 @@
 """MTSL train/eval step builders, the paper's Alg. 1 (port of
-`repro.core.mtsl`, its dense path for the classifier families).
+`repro.core.mtsl`, its dense path, for the classifier families and the
+decoder LMs: `family` "dense" / "ssm" / "hybrid").
 
 One round:
-  * the client towers run mapped over the leading client axis
-    (`torch.func.vmap`: private compute, one stacked parameter tree);
+  * the client towers run mapped over the leading client axis (private
+    compute, one stacked parameter tree): the classifiers under
+    `torch.func.vmap`; the LMs as a Python loop over clients, each on its
+    view of the stacked towers (`core.split.client_view`), the outputs
+    stacked. An LM tower launches ctypes kernels, inside
+    `torch.utils.checkpoint` under remat, which vmap cannot trace, and
+    each client's tower has its own `A_log`, so the client axis cannot fold
+    into the SSD kernel's batch either. The loop is the same function as
+    the reference's `jax.vmap`;
   * the smashed-data upload is the activation boundary: the client dim
     folds into the batch;
   * the server stack runs on all clients' smashed data;
@@ -16,8 +24,8 @@ Parameters live in a `TrainState` whose leaves require grad; the apply
 step updates them in place (the reference donates their buffers instead),
 so a round returns the state it was given, advanced.
 
-The reference's `client_axis` chunking (a scan over client blocks) and
-the LM families' losses are not ported yet.
+The reference's `client_axis` chunking (a scan over client blocks) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import schedule as schedule_mod
-from repro_torch.core.split import is_client_path, stack_towers
+from repro_torch.core.split import client_view, is_client_path, stack_towers
 from repro_torch.models.registry import Model
 from repro_torch.optim.per_component import ComponentLR, per_component_lr
 from repro_torch.utils.tree import tree_leaves, tree_map
@@ -65,11 +73,58 @@ def _ce_logits(logits, labels, mask=None, denom=None):
     return (nll * mask).sum(-1) / d
 
 
+def _lm_loss(logits, tokens, smask=None, denom=None):
+    """Per-task next-token CE. logits [M, b, S, V] f32, tokens [M, b, S]
+    -> [M]. `smask` [M, b] optionally selects the live sequences of a
+    padded batch (capability batch sizing); `denom` [M] is the
+    _ce_logits denominator override in TOKENS."""
+    M, _, S, V = logits.shape
+    labels = tokens[..., 1:]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    if smask is not None:
+        mask = mask * smask[..., None]
+    return _ce_logits(logits[:, :, :-1].reshape(M, -1, V),
+                      labels.reshape(M, -1), mask.reshape(M, -1), denom)
+
+
+def _at_least_f32(logits):
+    """bf16 logits go up to f32; an f64 tree stays f64, which a precision
+    witness of the f32 round needs."""
+    return logits.to(torch.promote_types(logits.dtype, torch.float32))
+
+
+def _is_classifier(cfg) -> bool:
+    return cfg.family in ("mlp", "resnet")
+
+
+def _towers_fn(model: Model, num_clients: int) -> Callable:
+    """towers_fwd(towers, inputs) -> smashed {"h": [M, ...]}: the client
+    towers over the leading client axis (see the module docstring)."""
+    if _is_classifier(model.cfg):
+        return torch.func.vmap(model.tower_forward)
+
+    def towers_fwd(towers, inputs):
+        outs = [model.tower_forward(client_view(towers, m),
+                                    {k: v[m] for k, v in inputs.items()})
+                for m in range(num_clients)]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    return towers_fwd
+
+
+def _check_family(cfg):
+    if cfg.family not in ("mlp", "resnet", "dense", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"the mtsl round of family {cfg.family!r} is not ported yet")
+
+
 def make_loss_fn(model: Model, num_clients: int) -> Callable:
     """loss_fn(params, batch, participation=None, sample_mask=None,
-    sample_denom=None) -> (loss, metrics), for the classifier families.
+    sample_denom=None) -> (loss, metrics).
 
-    batch: {"image": [M, b, ...], "label": [M, b]} on the params' device.
+    batch: {"image": [M, b, ...], "label": [M, b]} (classifiers; metrics
+    loss, per_task, acc, aux) or {"tokens": [M, b, S]} (LMs: next-token
+    CE; metrics loss, per_task, aux) on the params' device.
     Loss = sum over tasks of per-task mean loss (paper Eq. 2). An optional
     `participation` mask [M] of {0,1} weights the per-task sum AND stops
     gradient through masked-out clients' smashed activations, so a
@@ -85,10 +140,9 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
     denominator either)."""
     cfg = model.cfg
     M = num_clients
-    if cfg.family not in ("mlp", "resnet"):
-        raise NotImplementedError(
-            f"the mtsl loss of family {cfg.family!r} is not ported yet")
-    towers_fwd = torch.func.vmap(model.tower_forward)
+    _check_family(cfg)
+    is_classifier = _is_classifier(cfg)
+    towers_fwd = _towers_fn(model, M)
 
     def loss_fn(params, batch, participation=None, sample_mask=None,
                 sample_denom=None):
@@ -105,10 +159,23 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
         # --- smashed-data upload: fold the client dim into the batch
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
         logits, aux = model.server_forward(params["server"], flat)
+        if not is_classifier:
+            per_logits = _at_least_f32(logits).reshape(
+                (M, -1) + tuple(logits.shape[1:]))
+            tokens = batch["tokens"]
+            if sample_mask is None:
+                per = _lm_loss(per_logits, tokens)
+            elif sample_denom is None:
+                per = _lm_loss(per_logits, tokens, sample_mask)
+            else:
+                seq_tokens = tokens.shape[-1] - 1
+                per = _lm_loss(per_logits, tokens, sample_mask,
+                               torch.clamp(sample_denom * seq_tokens, min=1e-9))
+            wper = per if participation is None else per * participation
+            loss = wper.sum() + aux
+            return loss, {"loss": loss, "per_task": per, "aux": aux}
         labels = batch["label"]
-        # at least f32 (bf16 logits go up; an f64 tree stays f64, which a
-        # precision witness of the f32 round needs)
-        logits32 = logits.to(torch.promote_types(logits.dtype, torch.float32))
+        logits32 = _at_least_f32(logits)
         per_logits = logits32.reshape(M, -1, logits.shape[-1])
         correct = (logits32.argmax(-1) == labels.reshape(-1).long()).float()
         if sample_mask is None:
@@ -239,13 +306,14 @@ def build_train_phases(
 
 
 def build_eval_step(model: Model, num_clients: int) -> Callable:
-    """eval_step(params, batch) -> per-task accuracy (paper Eq. 14):
-    {"per_task_acc": [M], "acc_mtl": mean over tasks}."""
+    """eval_step(params, batch) -> per-task metrics: the classifiers'
+    accuracy (paper Eq. 14), {"per_task_acc": [M], "acc_mtl": mean over
+    tasks}; the LMs' next-token loss, {"per_task_loss": [M], "loss": sum
+    over tasks}."""
     M = num_clients
-    if model.cfg.family not in ("mlp", "resnet"):
-        raise NotImplementedError(
-            f"the mtsl eval of family {model.cfg.family!r} is not ported yet")
-    towers_fwd = torch.func.vmap(model.tower_forward)
+    _check_family(model.cfg)
+    is_classifier = _is_classifier(model.cfg)
+    towers_fwd = _towers_fn(model, M)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -253,6 +321,10 @@ def build_eval_step(model: Model, num_clients: int) -> Callable:
         smashed = towers_fwd(params["towers"], inputs)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
         logits, _ = model.server_forward(params["server"], flat)
+        if not is_classifier:
+            per = _lm_loss(_at_least_f32(logits).reshape((M, -1) + tuple(logits.shape[1:])),
+                           batch["tokens"])
+            return {"per_task_loss": per, "loss": per.sum()}
         preds = logits.float().argmax(-1).reshape(M, -1)
         per_task_acc = (preds == batch["label"].long()).float().mean(1)
         return {"per_task_acc": per_task_acc, "acc_mtl": per_task_acc.mean()}

@@ -1,0 +1,123 @@
+"""Public wrapper of the flash-attention kernel (`csrc/flash_attention.cu`,
+K2): the training forward's causal / sliding-window self-attention.
+
+Model code calls flash_attention(q, k, v, causal, window) in the model's
+`[B, S, H, D]` layout, as in the reference's
+`repro.kernels.flash_attention.ops`. It is an autograd Function: the
+forward launches the kernel on CUDA tensors (or raises on one it cannot
+take) and runs the plain version (`ref.mha_reference`) on CPU tensors;
+the backward recomputes through the plain version and differentiates it,
+as the reference's custom_vjp does (`ops.py:41-45`). The kernel reads q,
+k and v through their strides, so unlike the reference wrapper nothing is
+transposed.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.flash_attention.ref import mha_grouped, mha_reference
+
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+MAX_HEAD_DIM = 256  # kMaxD in the source; D must also be a multiple of 8
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_cuda_library("flash_attention", SOURCES)
+    fn = lib.repro_flash_attention
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, I, P, P]
+    fn.restype = I
+    lib.repro_flash_attention_error_string.argtypes = [I]
+    lib.repro_flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v, window):
+    if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: q is on CUDA, so k and v must be "
+                         "on the same card")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: q/k/v must share a dtype among "
+                         f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: want q [B,Sq,Hq,D], k = v "
+                         f"[B,Sk,Hkv,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    Bk, Sk, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hq % Hkv or Sq < 1 or Sk < 1:
+        raise ValueError(f"flash_attention: mismatched shapes {tuple(q.shape)} "
+                         f"vs {tuple(k.shape)}")
+    if D > MAX_HEAD_DIM or D % 8:
+        raise ValueError(f"flash_attention: kernel takes D a multiple of 8 up "
+                         f"to {MAX_HEAD_DIM}; got D={D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # rows are loaded with 16-byte loads of 8 elements
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} needs unit stride over "
+                             f"D, other strides multiples of 8 elements and a "
+                             f"16-byte aligned base; got {t.stride()}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+
+
+def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    _check(q, k, v, window)
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
+                                        for i in range(3)))
+    lib = _lib()
+    rc = lib.repro_flash_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal), window,
+        ctypes.cast(strides, ctypes.c_void_p),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        msg = lib.repro_flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({rc})")
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if q.is_cuda:
+            return _launch(q, k, v, causal, window)
+        return mha_reference(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = mha_grouped(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
+    dtype: softmax(q k^T / sqrt(D)) v with the causal and window masks and
+    GQA (kv head h // (Hq / Hkv)). On CUDA a row with no visible key gives
+    0, as the TPU kernel does; the plain version averages over the masked
+    keys (the training forward never has such a row)."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+# kernel launches (the plain CPU path is not counted): a run reads it to
+# show that its attention went through the kernel
+flash_attention.launches = 0

@@ -1,7 +1,9 @@
 """Plain-torch attention oracle (grouped-query, causal / sliding-window),
 the port of `repro.kernels.flash_attention.ref` lines 14-81. Prefill and
-chunked extend use it, as the reference does; it is not a Pallas kernel in
-the reference, so no hand-written kernel replaces it.
+chunked extend use it, as the reference does. It is also the plain version
+of the flash-attention kernel (K2, `csrc/flash_attention.cu`), the path of
+CPU tensors in the training forward, and the function that K2's backward
+differentiates (through `mha_grouped`, uncounted).
 """
 from __future__ import annotations
 
@@ -51,7 +53,16 @@ def attn_mask(
     return mask
 
 
-def mha_reference(
+def mha_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_offset=0, kv_valid=None) -> torch.Tensor:
+    """`mha_grouped`, with its calls on CUDA tensors counted."""
+    if q.is_cuda:
+        mha_reference.cuda_calls += 1
+    return mha_grouped(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, kv_valid=kv_valid)
+
+
+def mha_grouped(
     q: torch.Tensor,  # [B, Sq, Hq, D]
     k: torch.Tensor,  # [B, Sk, Hkv, D]
     v: torch.Tensor,  # [B, Sk, Hkv, D]
@@ -81,7 +92,12 @@ def mha_reference(
         mask = mask[None, None, None]  # [1,1,1,q,k]
     else:  # [B,q,k]
         mask = mask[:, None, None]
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, D)
+
+
+# calls on CUDA tensors (serving prefill and extend make them; the training
+# forward on the card goes through K2 and must make none)
+mha_reference.cuda_calls = 0

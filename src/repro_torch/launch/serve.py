@@ -35,10 +35,12 @@ from repro_torch.utils.device import generator, resolve_device
 
 
 def init_params(model, num_clients: int, seed: int, device):
-    """{"towers": [M, ...]-stacked, "server": ...} drawn from `seed`."""
+    """The serving tree {"towers": [M, ...]-stacked, "server": ...} drawn
+    from `seed`."""
     gen = generator(device, seed)
-    return {"towers": stack_towers(model.init_tower, gen, num_clients),
-            "server": model.init_server(gen)}
+    return {"towers": stack_towers(lambda g: model.init_tower(g, serving=True),
+                                   gen, num_clients),
+            "server": model.init_server(gen, serving=True)}
 
 
 def _prompts(cfg, n: int, prompt_len: int, min_prompt_len, seed: int):

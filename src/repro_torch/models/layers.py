@@ -1,19 +1,28 @@
-"""Shared building blocks of the dense decoder (port of
-`repro.models.layers`): norms, RoPE, embeddings, GQA self-attention with
-KV caches, SwiGLU MLP. Parameters are plain tensors in dicts with the
-reference's keys and layouts (dense `w[din, dout]`, `wq[d, H, D]`).
+"""Shared building blocks of the decoder models (port of
+`repro.models.layers`): norms, RoPE, embeddings, GQA self-attention (the
+training forward and the serving paths with KV caches), SwiGLU MLP.
+Parameters are plain tensors in dicts with the reference's keys and
+layouts (dense `w[din, dout]`, `wq[d, H, D]`).
 
-Dtypes follow where the reference uses each weight: it keeps parameters in
-f32 and casts matmul weights to `cfg.dtype` at each use, so the port stores
-those in `cfg.dtype` once (identical values); embedding tables and norm
-scales stay f32, because the reference scales the f32 embedding row before
-rounding and applies norm scales in f32.
+Two parameter trees, asked for with `serving=`:
+  * training (`serving=False`, the reference's tree): every leaf in
+    `cfg.param_dtype` (f32 masters), each matmul weight cast to
+    `cfg.dtype` at its use, as the reference casts;
+  * serving (`serving=True`): matmul weights stored in `cfg.dtype` once
+    (the same values the cast would give, at half the memory in bf16);
+    embedding tables and norm scales stay f32, because the reference
+    scales the f32 embedding row before rounding and applies norm scales
+    in f32.
+The apply functions cast every matmul weight to the activation's dtype,
+which is a no-op on a serving tree.
 
-Attention execution modes (self-attention only in this slice):
+Attention execution modes (self-attention only):
+  - forward: the training path, causal (+ sliding window) over the whole
+             sequence, always through the flash-attention wrapper (K2:
+             the CUDA kernel on CUDA tensors)
   - prefill: full sequence, causal (+ sliding window), returns a KV cache
   - decode:  one token per row against the row's cache slot, per-row
-             positions; always through the flash-decode wrapper (the CUDA
-             kernel on CUDA tensors)
+             positions; always through the flash-decode wrapper (K4)
   - extend:  a chunk of C tokens per row appended to a partial cache
 Decode and extend write K/V into the cache IN PLACE (the reference returns
 a new cache); decode takes an optional per-row `write` mask so frozen rows
@@ -29,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import mha_reference
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.flash_decode.ref import per_row
@@ -41,6 +51,12 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
+
+
+def weight_dtype(cfg: ModelConfig, serving: bool) -> torch.dtype:
+    """Storage dtype of a matmul weight: cfg.dtype in a serving tree,
+    cfg.param_dtype in a training tree (see the module docstring)."""
+    return compute_dtype(cfg) if serving else param_dtype(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +111,17 @@ def embed(p, tokens, cfg: ModelConfig):
 
 
 def logits_f32(x, w):
-    """x [..., d] @ w [d, V] with f32 accumulation and f32 output (the
-    reference's preferred_element_type=float32)."""
+    """x [..., d] @ w [d, V] (w cast to x's dtype) with f32 accumulation
+    and f32 output (the reference's preferred_element_type=float32).
+    Without autograd a bf16 product on the card accumulates in f32 inside
+    one bf16 GEMM; torch.mm's out_dtype has no derivative, so a product
+    that needs a gradient runs in f32 on the bf16-rounded operands (the
+    same products, exact in f32, and the same f32 sums)."""
+    w = w.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and not needs_grad:
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
@@ -110,9 +132,9 @@ def logits_f32(x, w):
 # ---------------------------------------------------------------------------
 
 
-def attn_params(gen, cfg: ModelConfig):
+def attn_params(gen, cfg: ModelConfig, serving: bool = False):
     d, Hq, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dt = compute_dtype(cfg)
+    dt = weight_dtype(cfg, serving)
     return {
         "wq": param(gen, (d, Hq, D), dtype=dt, fan_in=d),
         "wk": param(gen, (d, Hkv, D), dtype=dt, fan_in=d),
@@ -125,7 +147,7 @@ def attn_params(gen, cfg: ModelConfig):
 def _proj(x, w):
     """x [..., S, d] @ w [d, H, D] -> [..., S, H, D]."""
     d, H, D = w.shape
-    return (x @ w.reshape(d, H * D)).reshape(*x.shape[:-1], H, D)
+    return (x @ w.reshape(d, H * D).to(x.dtype)).reshape(*x.shape[:-1], H, D)
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
@@ -138,13 +160,33 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
 def _out_proj(out, wo):
     """out [..., S, H, D] @ wo [H, D, d] -> [..., S, d]."""
     H, D, d = wo.shape
-    return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, d)
+    return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, d).to(out.dtype)
 
 
 def _no_ring(cfg: ModelConfig):
     if cfg.decode_long_window:
         raise NotImplementedError(
             "ring KV caches (decode_long_window) are not ported yet")
+
+
+def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0):
+    """Training path: causal self-attention over x [B,S,d] (+ sliding
+    window). Returns the attention output [B,S,d] (residual added by the
+    caller). Always through the flash-attention wrapper (K2): the CUDA
+    kernel on CUDA tensors, mha_reference on CPU tensors. The reference
+    reaches its kernel only under cfg.use_flash_kernel, which is off by
+    default; the port does not read the flag, so that the kernel is the
+    path (both compute one function). Cross attention and
+    attn_impl="chunked" are not ported."""
+    if cfg.attn_impl != "ref":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is not ported: the port's training "
+            "attention is the flash-attention kernel")
+    h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    S = x.shape[-2]
+    q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device))
+    out = flash_attention(q, k, v, causal=True, window=window)
+    return _out_proj(out, p["wo"])
 
 
 def attn_prefill(p, x, cfg: ModelConfig, *, window: int = 0, max_len: int = 0):
@@ -232,10 +274,11 @@ def init_attn_cache(cfg: ModelConfig, batch: int, cap: int, device):
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
+def mlp_params(gen, cfg: ModelConfig, d_ff: Optional[int] = None,
+               serving: bool = False):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
-    dt = compute_dtype(cfg)
+    dt = weight_dtype(cfg, serving)
     return {
         "wg": param(gen, (d, f), dtype=dt),
         "wu": param(gen, (d, f), dtype=dt),
@@ -246,4 +289,7 @@ def mlp_params(gen, cfg: ModelConfig, d_ff: Optional[int] = None):
 
 def mlp_forward(p, x, cfg: ModelConfig):
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    return (F.silu(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+    cdt = h.dtype
+    g = h @ p["wg"].to(cdt)
+    u = h @ p["wu"].to(cdt)
+    return (F.silu(g) * u) @ p["wd"].to(cdt)

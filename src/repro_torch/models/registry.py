@@ -7,8 +7,15 @@ Training hooks, for the paper classifiers (`family` "mlp" / "resnet",
     tower_forward(tp, {"image": ...})   -> {"h": smashed}
     server_forward(sp, {"h": ...})      -> (logits [B, C], aux loss)
 
-Serving hooks, for `family == "dense"` (embedding + bottom `split_layers`
-blocks in the tower; the other blocks + final norm + head on the server):
+Training hooks, for the decoder LMs (`family` "dense" / "ssm" /
+"hybrid": embedding + bottom `split_layers` blocks in the tower; the
+other blocks + final norm + head on the server), on `[b, S]` tokens of
+one client:
+
+    tower_forward(tp, {"tokens": ...})  -> {"h": [b, S, d]}
+    server_forward(sp, {"h": ...})      -> (logits [B, S, V] f32, aux loss)
+
+Serving hooks, for `family == "dense"`:
 
     tower_prefill(tp, tokens [B,S], max_len)      -> (h [B,S,d], tcache)
     server_prefill(sp, h, max_len)                -> (logits [B,1,V] f32, scache)
@@ -20,6 +27,11 @@ blocks in the tower; the other blocks + final norm + head on the server):
 In serving, the reference passes and returns `{"h": ...}` smashed dicts
 and new caches; the port passes the activation tensor and updates caches
 in place. Training keeps the reference's `{"h": ...}` dicts.
+
+A decoder's `init_tower(gen, serving=False)` / `init_server(gen,
+serving=False)` give the training tree (every leaf in cfg.param_dtype, as
+the reference's); `serving=True` gives the serving tree of the engines
+(matmul weights in cfg.dtype; `models/layers.py`).
 """
 from __future__ import annotations
 
@@ -35,10 +47,10 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init_tower: Callable  # gen -> params (ONE client tower)
     init_server: Callable  # gen -> params
-    # training (classifier families)
+    # training
     tower_forward: Optional[Callable] = None
     server_forward: Optional[Callable] = None
-    # serving (dense family)
+    # serving (dense family; decoder inits take serving=True)
     tower_prefill: Optional[Callable] = None
     server_prefill: Optional[Callable] = None
     tower_decode: Optional[Callable] = None
@@ -57,21 +69,30 @@ def _decoder_model(cfg: ModelConfig) -> Model:
     tower_stack = make_stack(cfg, kinds[:split])
     server_stack = make_stack(cfg, kinds[split:])
 
-    def init_tower(gen):
+    def init_tower(gen, serving: bool = False):
         return {"embed": L.embedding_params(gen, cfg),
-                "blocks": tower_stack.init(gen)}
+                "blocks": tower_stack.init(gen, serving)}
 
-    def init_server(gen):
+    def init_server(gen, serving: bool = False):
         return {
-            "blocks": server_stack.init(gen),
+            "blocks": server_stack.init(gen, serving),
             "norm": L.rmsnorm_params(gen, cfg.d_model),
             "head": {"w": param(gen, (cfg.d_model, cfg.vocab_size),
-                                dtype=L.compute_dtype(cfg))},
+                                dtype=L.weight_dtype(cfg, serving))},
         }
 
     def _head(sp, x):
         x = L.rmsnorm(sp["norm"], x, cfg.norm_eps)
         return L.logits_f32(x, sp["head"]["w"])
+
+    def tower_forward(tp, inputs):
+        x = L.embed(tp["embed"], inputs["tokens"], cfg)
+        x, _ = tower_stack.forward(tp["blocks"], x, {})
+        return {"h": x}
+
+    def server_forward(sp, smashed):
+        x, aux = server_stack.forward(sp["blocks"], smashed["h"], {})
+        return _head(sp, x), aux
 
     def tower_prefill(tp, tokens, max_len):
         x = L.embed(tp["embed"], tokens, cfg)
@@ -105,6 +126,8 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init_tower=init_tower,
         init_server=init_server,
+        tower_forward=tower_forward,
+        server_forward=server_forward,
         tower_prefill=tower_prefill,
         server_prefill=server_prefill,
         tower_decode=tower_decode,
@@ -117,7 +140,7 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "ssm", "hybrid"):
         return _decoder_model(cfg)
     if cfg.family == "mlp":
         from repro_torch.models.classifiers import mlp_model

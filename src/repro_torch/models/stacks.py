@@ -1,5 +1,6 @@
-"""Layer-stack assembly (port of `repro.models.stacks` for the dense
-`full`/`swa` kinds): blocks -> repeating segments -> a Python loop.
+"""Layer-stack assembly (port of `repro.models.stacks` for the `full`,
+`swa`, `mamba` and `shared_attn` kinds): blocks -> repeating segments ->
+a Python loop.
 
 The reference stacks the parameters of a segment that repeats (with
 `cfg.scan_layers`) along a leading layer axis and runs it under
@@ -9,30 +10,56 @@ and loops over it; a segment that does not repeat is one unit dict, as in
 the reference. Caches mirror the parameter tree and are updated in place
 by decode/extend.
 
-ctx keys: "max_len" (prefill), "pos" and optional "write" (decode),
-"start" (extend).
+The training forward rematerialises per segment unit, as the reference's
+`_remat` wraps each unit (the scan body): `cfg.remat` "block" runs each
+unit under `torch.utils.checkpoint` (non-reentrant: only the unit's input
+is kept, and its backward reruns the unit's forward); "full" shares that
+code, since the reference's `nothing_saveable` policy also keeps only the
+unit's inputs; "none" is a plain call. Without `cfg.scan_layers` the whole
+stack is one unit, as in the reference.
+
+Zamba2's *shared* attention block is loop-invariant: its parameters live
+at the stack level ("shared") and reach each `shared_attn` layer through
+ctx["shared"].
+
+Serving (prefill / decode / extend / caches) is ported for the `full` and
+`swa` kinds only.
+
+ctx keys: "shared" (forward), "max_len" (prefill), "pos" and optional
+"write" (decode), "start" (extend).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import mamba_forward, mamba_params
 
 PyTree = Any
 
 
 class Block(NamedTuple):
-    init: Callable  # gen -> params
-    prefill: Callable  # (p, x, ctx) -> (x, cache)
-    decode: Callable  # (p, x_t, cache, ctx) -> x_t (cache updated in place)
-    init_cache: Callable  # (batch, cap, device) -> cache
-    extend: Callable  # (p, x_c, cache, ctx) -> x_c (cache updated in place)
+    init: Callable  # (gen, serving) -> params
+    forward: Callable  # (p, x, ctx) -> x (training)
+    # serving; None for a kind whose serving is not ported
+    prefill: Optional[Callable] = None  # (p, x, ctx) -> (x, cache)
+    decode: Optional[Callable] = None  # (p, x_t, cache, ctx) -> x_t (in place)
+    init_cache: Optional[Callable] = None  # (batch, cap, device) -> cache
+    extend: Optional[Callable] = None  # (p, x_c, cache, ctx) -> x_c (in place)
 
 
 def _attn_mlp_block(cfg: ModelConfig, window: int) -> Block:
-    def init(gen):
-        return {"attn": L.attn_params(gen, cfg), "mlp": L.mlp_params(gen, cfg)}
+    def init(gen, serving):
+        return {"attn": L.attn_params(gen, cfg, serving),
+                "mlp": L.mlp_params(gen, cfg, serving=serving)}
+
+    def forward(p, x, ctx):
+        x = x + L.attn_forward(p["attn"], x, cfg, window=window)
+        return x + L.mlp_forward(p["mlp"], x, cfg)
 
     def prefill(p, x, ctx):
         a, cache = L.attn_prefill(p["attn"], x, cfg, window=window,
@@ -53,7 +80,31 @@ def _attn_mlp_block(cfg: ModelConfig, window: int) -> Block:
                                   window=window)
         return x_c + L.mlp_forward(p["mlp"], x_c, cfg)
 
-    return Block(init, prefill, decode, init_cache, extend)
+    return Block(init, forward, prefill, decode, init_cache, extend)
+
+
+def _mamba_block(cfg: ModelConfig) -> Block:
+    def init(gen, serving):
+        return {"mamba": mamba_params(gen, cfg)}
+
+    def forward(p, x, ctx):
+        return x + mamba_forward(p["mamba"], x, cfg)
+
+    return Block(init, forward)
+
+
+def _shared_attn_block(cfg: ModelConfig) -> Block:
+    """Zamba2-style layer: apply the stack-level *shared* attention+MLP
+    block (params from ctx["shared"]), then its own mamba."""
+    mamba = _mamba_block(cfg)
+
+    def forward(p, x, ctx):
+        sp = ctx["shared"]
+        x = x + L.attn_forward(sp["attn"], x, cfg)
+        x = x + L.mlp_forward(sp["mlp"], x, cfg)
+        return mamba.forward(p, x, ctx)
+
+    return Block(mamba.init, forward)
 
 
 def make_block(cfg: ModelConfig, kind: str) -> Block:
@@ -61,6 +112,10 @@ def make_block(cfg: ModelConfig, kind: str) -> Block:
         return _attn_mlp_block(cfg, window=0)
     if kind == "swa":
         return _attn_mlp_block(cfg, window=cfg.sliding_window)
+    if kind == "mamba":
+        return _mamba_block(cfg)
+    if kind == "shared_attn":
+        return _shared_attn_block(cfg)
     raise ValueError(f"block kind {kind!r} is not ported yet")
 
 
@@ -92,17 +147,42 @@ def stack_segments(cfg: ModelConfig, kinds: Sequence[str]):
 
 
 class Stack(NamedTuple):
-    init: Callable  # gen -> params
+    init: Callable  # (gen, serving=False) -> params
+    forward: Callable  # (p, x, ctx) -> (x, aux)
     prefill: Callable  # (p, x, ctx) -> (x, caches)
     decode: Callable  # (p, x_t, caches, ctx) -> x_t
     extend: Callable  # (p, x_c, caches, ctx) -> x_c
     init_cache: Callable  # (batch, cap, device) -> caches
 
 
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """The unit function under cfg.remat (see the module docstring)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("block", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
+    """A stack over `kinds`. Where `kinds` holds `shared_attn` layers, a
+    stack-level shared attention+MLP block is created and passed to the
+    layers through ctx["shared"]. A stack with a kind that has no serving
+    path refuses prefill, decode, extend and init_cache."""
+    has_shared = "shared_attn" in kinds
     segments = stack_segments(cfg, kinds)
     seg_blocks = [tuple(make_block(cfg, k) for k in unit) for unit, _ in segments]
     seg_repeats = [r for _, r in segments]
+    serves = all(b.prefill is not None for blocks in seg_blocks for b in blocks)
+
+    def _serving(fn):
+        if serves:
+            return fn
+
+        def refuse(*args, **kwargs):
+            raise NotImplementedError(
+                f"serving of block kinds {sorted(set(kinds))} is not ported yet")
+        return refuse
 
     def _units(tree, si):
         """The unit trees of segment si: one per repeat."""
@@ -112,13 +192,31 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
     def _pack(units, si):
         return units if seg_repeats[si] > 1 else units[0]
 
-    def init(gen):
+    def init(gen, serving: bool = False):
         p = {}
+        if has_shared:
+            p["shared"] = {"attn": L.attn_params(gen, cfg, serving),
+                           "mlp": L.mlp_params(gen, cfg, serving=serving)}
         for si, blocks in enumerate(seg_blocks):
-            units = [{str(j): b.init(gen) for j, b in enumerate(blocks)}
+            units = [{str(j): b.init(gen, serving) for j, b in enumerate(blocks)}
                      for _ in range(seg_repeats[si])]
             p[f"seg{si}"] = _pack(units, si)
         return p
+
+    def forward(p, x, ctx):
+        if has_shared:
+            ctx = dict(ctx, shared=p["shared"])
+        for si, blocks in enumerate(seg_blocks):
+            def unit_fwd(px, x, blocks=blocks):
+                for j, b in enumerate(blocks):
+                    x = b.forward(px[str(j)], x, ctx)
+                return x
+
+            unit_fwd = _remat(unit_fwd, cfg)
+            for px in _units(p, si):
+                x = unit_fwd(px, x)
+        # the dense, ssm and hybrid kinds add no auxiliary loss
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def prefill(p, x, ctx):
         caches = {}
@@ -155,4 +253,5 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
             caches[f"seg{si}"] = _pack(units, si)
         return caches
 
-    return Stack(init, prefill, decode, extend, init_cache)
+    return Stack(init, forward, _serving(prefill), _serving(decode),
+                 _serving(extend), _serving(init_cache))

@@ -4,15 +4,16 @@ reference's stripped `{"towers", "server"}` parameter tree as numpy arrays
 
 For the paper classifiers (`family` "mlp" / "resnet") keys and layouts
 are kept as they are, every leaf in f32 (their `cfg.dtype`). For the
-decoder models:
+decoder models (`family` "dense" / "ssm" / "hybrid"):
 
-  * keys are kept;
+  * keys are kept, the stack-level `shared` block of a hybrid stack
+    included;
   * a `seg{i}` segment that the reference stacks along a layer axis (a
     repeating segment under `cfg.scan_layers`; the axis follows the client
     axis in the towers) becomes a list with one unit dict per repeat;
-  * each leaf is cast to the dtype the reference uses it in: matmul
-    weights and the head in `cfg.dtype`, embedding tables and norm scales
-    in `cfg.param_dtype` (f32).
+  * the result is the training tree (`models/layers.py`): every leaf in
+    `cfg.param_dtype`, as the reference holds it, and the Mamba leaves
+    `A_log`, `D` and `dt_bias` in f32.
 """
 from __future__ import annotations
 
@@ -27,20 +28,22 @@ from repro_torch.models.stacks import stack_segments
 from repro_torch.utils.tree import tree_map
 
 PyTree = Any
-_KEPT_IN_PARAM_DTYPE = ("table", "scale")
+_ALWAYS_F32 = ("A_log", "D", "dt_bias")
 
 
 def convert_tree(tree, device, cfg: ModelConfig, key=None):
-    """A nested dict of numpy arrays as tensors, each leaf in the dtype the
-    reference uses it in (see the module docstring); no segment handling."""
+    """A nested dict of numpy arrays as tensors of the training tree (see
+    the module docstring); no segment handling."""
     if isinstance(tree, dict):
         return {k: convert_tree(v, device, cfg, k) for k, v in tree.items()}
-    dt = L.param_dtype(cfg) if key in _KEPT_IN_PARAM_DTYPE else L.compute_dtype(cfg)
+    dt = torch.float32 if key in _ALWAYS_F32 else L.param_dtype(cfg)
     return torch.tensor(np.array(tree, dtype=np.float32), dtype=dt, device=device)
 
 
 def _blocks(blocks, kinds, axis: int, device, cfg: ModelConfig):
     out = {}
+    if "shared_attn" in kinds:
+        out["shared"] = convert_tree(blocks["shared"], device, cfg)
     for si, (_, rep) in enumerate(stack_segments(cfg, kinds)):
         seg = blocks[f"seg{si}"]
         if rep == 1:
@@ -48,11 +51,11 @@ def _blocks(blocks, kinds, axis: int, device, cfg: ModelConfig):
             continue
         out[f"seg{si}"] = [
             convert_tree(tree_map(lambda a, r=r: np.take(np.asarray(a), r, axis=axis), seg),
-                     device, cfg)
+                         device, cfg)
             for r in range(rep)
         ]
-    if len(out) != len(blocks):
-        raise ValueError(f"segments {sorted(blocks)} do not match the port's "
+    if sorted(out) != sorted(blocks):
+        raise ValueError(f"blocks {sorted(blocks)} do not match the port's "
                          f"layout {sorted(out)} for {cfg.name}")
     return out
 

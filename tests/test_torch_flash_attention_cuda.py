@@ -1,0 +1,100 @@
+"""The port's CUDA flash-attention kernel (K2) against its plain PyTorch
+version, on the card. Marked `cuda`: it skips without one (a CUDA kernel
+has no CPU mode). The file imports neither JAX nor the JAX package, so it
+also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_flash_attention_cuda.py
+
+Cases: the reference's FLASH_CASES shapes that are causal
+(tests/test_kernels.py), GQA, windows, a ragged S, strided q/k/v (views of
+a fused projection), and the zamba2-7b path's shape (B = 2, H = 32,
+S = 2048, D = 112). Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
+Also a row with no visible key: the kernel gives 0, as the TPU kernel does.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import mha_reference
+
+CASES = [
+    # (B, S, Hq, Hkv, D, window, dtype)
+    (2, 64, 4, 2, 32, 0, "float32"),
+    (1, 128, 2, 2, 64, 16, "float32"),
+    (1, 96, 4, 1, 16, 0, "float32"),
+    (1, 64, 4, 4, 128, 0, "bfloat16"),
+    (1, 80, 2, 1, 64, 24, "float32"),
+    (2, 200, 4, 4, 112, 0, "float32"),
+    (1, 300, 8, 2, 256, 100, "bfloat16"),
+    (2, 2048, 32, 32, 112, 0, "bfloat16"),  # zamba2-7b's shared attention
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(case, seed=0):
+    B, S, Hq, Hkv, D, _, dtype = case
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(B, S, h, D)), dtype=getattr(torch, dtype),
+                         device="cuda") for h in (Hq, Hkv, Hkv)]
+
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_kernel_matches_plain(case):
+    _skip_without_card()
+    window, dtype = case[5], case[6]
+    q, k, v = _inputs(case)
+    n, plain = flash_attention.launches, mha_reference.cuda_calls
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    assert mha_reference.cuda_calls == plain
+    ref = mha_reference(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_reads_strided_views():
+    """q, k, v as views of one fused [B, S, 3, H, D] projection."""
+    _skip_without_card()
+    rng = np.random.default_rng(3)
+    qkv = torch.tensor(rng.normal(size=(2, 70, 3, 4, 32)), dtype=torch.float32,
+                       device="cuda")
+    q, k, v = qkv.unbind(2)
+    out = flash_attention(q, k, v, causal=True, window=0)
+    ref = mha_reference(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_gradients_match_plain():
+    _skip_without_card()
+    q, k, v = (t.requires_grad_() for t in _inputs((1, 96, 4, 2, 32, 24, "float32")))
+    g = torch.randn_like(q)
+    grads = torch.autograd.grad((flash_attention(q, k, v, True, 24) * g).sum(), (q, k, v))
+    want = torch.autograd.grad((mha_reference(q, k, v, causal=True, window=24) * g).sum(),
+                               (q, k, v))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_row_with_no_visible_key_is_zero():
+    """Sq = 8 queries over Sk = 4 keys, causal with a window of 1: row i
+    sees only key i, so rows 4..7 see none and must be 0."""
+    _skip_without_card()
+    rng = np.random.default_rng(4)
+    q = torch.tensor(rng.normal(size=(1, 8, 2, 16)), dtype=torch.float32, device="cuda")
+    k, v = (torch.tensor(rng.normal(size=(1, 4, 2, 16)), dtype=torch.float32,
+                         device="cuda") for _ in range(2))
+    out = flash_attention(q, k, v, causal=True, window=1)
+    torch.cuda.synchronize()
+    assert float(out[:, 4:].abs().max()) == 0.0
+    ref = mha_reference(q, k, v, causal=True, window=1)
+    torch.testing.assert_close(out[:, :4], ref[:, :4], atol=2e-5, rtol=2e-5)

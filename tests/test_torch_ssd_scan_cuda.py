@@ -1,0 +1,83 @@
+"""The port's CUDA SSD-scan kernel (K3) against its plain PyTorch version,
+on the card. Marked `cuda`: it skips without one (a CUDA kernel has no CPU
+mode). The file imports neither JAX nor the JAX package, so it also runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_ssd_scan_cuda.py
+
+Cases: the reference's SSD_CASES shapes (tests/test_kernels.py), a length
+that is not a multiple of the kernel's 64-position tile, a nonzero initial
+state, and the shapes of the LM path (zamba2-7b's server and tower,
+mamba2-130m's). Tolerances: y within 2e-5 in f32 and 5e-2 in bf16, the
+final state within 1e-4 (relative to its largest entry at the full-width
+shapes, where the state sums thousands of terms).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+CASES = [
+    # (B, L, H, P, N, chunk, dtype, initial state)
+    (2, 64, 3, 8, 16, 16, "float32", False),
+    (1, 128, 2, 16, 8, 32, "float32", False),
+    (2, 32, 1, 4, 4, 32, "float32", False),
+    (1, 64, 4, 32, 64, 16, "float32", False),
+    (1, 64, 2, 8, 8, 16, "bfloat16", False),
+    (2, 48, 3, 8, 16, 16, "float32", False),   # ragged last tile
+    (2, 96, 2, 16, 32, 32, "float32", True),   # initial state
+    (2, 2048, 112, 64, 64, 128, "bfloat16", False),  # zamba2-7b server
+    (1, 2048, 112, 64, 64, 128, "bfloat16", False),  # zamba2-7b tower
+    (16, 256, 24, 64, 128, 128, "bfloat16", False),  # mamba2-130m
+]
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _inputs(case, seed=2):
+    B, L, H, P, N, _, dtype, with_state = case
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(a, d=dt):
+        return torch.tensor(a, dtype=d, device="cuda")
+
+    f32 = torch.float32
+    x = t(rng.normal(size=(B, L, H, P)))
+    dtv = t(rng.uniform(0.01, 0.2, size=(B, L, H)), f32)
+    A = t(-rng.uniform(0.5, 2.0, size=(H,)), f32)
+    Bm, Cm = t(rng.normal(size=(B, L, N))), t(rng.normal(size=(B, L, N)))
+    h0 = t(rng.normal(size=(B, H, P, N)), f32) if with_state else None
+    return x, dtv, A, Bm, Cm, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_kernel_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    chunk, dtype = case[5], case[6]
+    x, dtv, A, Bm, Cm, h0 = _inputs(case)
+    n, plain = ssd_scan.launches, ssd_reference.cuda_calls
+    y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n + 1
+    assert ssd_reference.cuda_calls == plain
+    yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    scale = max(1.0, float(sr.abs().max()))
+    assert float((st - sr).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, dtv, A, Bm, Cm, _ = _inputs((1, 64, 2, 8, 8, 16, "float32", False))
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan(x, dtv.double(), A, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="P, N"):
+        big = torch.zeros(1, 64, 1, 256, device="cuda")
+        ssd_scan(big, dtv[..., :1].contiguous(), A[:1], Bm, Cm, chunk=16)
