@@ -16,7 +16,10 @@ Phases, each of which must pass (any failure exits non-zero):
           version, F.scaled_dot_product_attention with the same mask (a
           yardstick only: the port never calls it) and the bound (bytes
           over 3.35 TB/s or flops over the dtype's peak, whichever is
-          larger), each launch behind an L2 flush.
+          larger), each launch behind an L2 flush, with bound_share =
+          bound / kernel time. Each case launches twice: the outputs must be
+          bit-equal. Then the serving path's rows in a cap-320 and in a
+          cap-4096 buffer: bit-equal outputs in bf16 and f32.
   k1      K1 against its plain version: every leaf shape that the train
           phase updates, read from the initial trees of full
           paper-resnet16 and paper-mlp with M = 10 (towers with one step
@@ -72,7 +75,8 @@ Phases, each of which must pass (any failure exits non-zero):
           yardstick only: the port never calls it), each behind an L2
           flush; the bound is the larger of the bytes (q, k, v, out once)
           over 3.35 TB/s and 4 D flops per visible (query, key) pair over
-          the dtype's peak.
+          the dtype's peak, and bound_share = bound / kernel time. Each
+          case launches twice: the outputs must be bit-equal.
   k3      K3 against its plain version (ssd_reference) on zamba2-7b's
           server shape (B = 2, L = 2048, H = 112, P = N = 64, chunk 128,
           bf16), its tower shape (B = 1), mamba2-130m's (B = 16, L = 256,
@@ -111,7 +115,9 @@ Phases, each of which must pass (any failure exits non-zero):
           reported).
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
-line, and as its last line `{"ok": true, "device": {...}}`. Without CUDA,
+line, and as its last line `{"ok": true, "device": {...}}`.
+`python3 chip_smoke.py --only k2,kernel` runs the build and the named
+phases alone and prints no result line. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -240,11 +246,14 @@ def kernel_phase(torch, dev):
         q_offset = kv_valid - 1
         kw = dict(kv_valid=kv_valid, q_offset=q_offset, window=window)
         out = flash_decode(q, k, v, **kw)
+        again = flash_decode(q, k, v, **kw)
         ref = decode_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if not err <= tol[dt]:
             raise AssertionError(f"K4 {name}: max |kernel - plain| {err} > {tol[dt]}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K4 {name}: two launches differ")
 
         kpos = torch.arange(cap, device=dev)
         mask = kpos[None, :] < kv_valid[:, None]
@@ -268,14 +277,43 @@ def kernel_phase(torch, dev):
                     qs, ks, vs, attn_mask=amask, enable_gqa=True), 20, flush),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "visible_rows": visible,
+            "visible_rows": visible, "repeat_bit_equal": True,
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         print(f"  K4 {name}: err {err:.3g}  kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, share "
+              f"{row['bound_share']:.3f})", flush=True)
+    rows.append(_k4_cap_case(torch, dev, gen))
     del flush
     return rows
+
+
+def _k4_cap_case(torch, dev, gen):
+    """The serving path's rows in a cap-320 and in a cap-4096 buffer (the
+    rows past 320 hold other values): the outputs must be bit-equal, in
+    bf16 (split-KV) and in f32."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+
+    B, Hq, Hkv, D = 4, 16, 8, 256
+    kv_valid = torch.tensor([1, 64, 200, 320], dtype=torch.int32, device=dev)
+    res = {"case": "cap320_vs_cap4096", "B": B, "kv_valid": kv_valid.tolist()}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(dtype)
+        big = [torch.randn(B, 4096, Hkv, D, generator=gen, device=dev).to(dtype)
+               for _ in range(2)]
+        small = [t[:, :320].contiguous() for t in big]
+        for window in (0, 1024):
+            kw = dict(kv_valid=kv_valid, q_offset=kv_valid - 1, window=window)
+            if not torch.equal(flash_decode(q, *small, **kw), flash_decode(q, *big, **kw)):
+                raise AssertionError(f"K4 {dt} window {window}: cap 320 and cap 4096 "
+                                     f"give different outputs for the same rows")
+        res[f"{dt}_bit_equal"] = True
+    print(f"  K4 cap320_vs_cap4096: bit-equal in bf16 and f32, windows 0 and 1024",
+          flush=True)
+    return res
 
 
 def slice_phase(torch):
@@ -814,8 +852,11 @@ def k2_phase(torch, dev):
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
                    for h in (Hq, Hkv, Hkv))
         out = flash_attention(q, k, v, True, window)
+        again = flash_attention(q, k, v, True, window)
         ref = mha_reference(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"K2 {name}: two launches differ")
         err = (out.float() - ref.float()).abs().max().item()
         rel_l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
         if not (_allclose(out, ref, tol[dt]) and rel_l2 <= K2_REL_L2[dt]):
@@ -845,13 +886,15 @@ def k2_phase(torch, dev):
             "library_ms": _median_ms(library, 20, flush),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes,
+            "flops": flops, "bytes": nbytes, "repeat_bit_equal": True,
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         print(f"  K2 {name}: err {err:.3g} (l2 {rel_l2:.3g})  kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-        del q, k, v, out, ref
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, share "
+              f"{row['bound_share']:.3f})", flush=True)
+        del q, k, v, out, again, ref
     del flush
     return rows
 
@@ -1198,6 +1241,26 @@ def lm_parity_phase(torch):
     return out
 
 
+PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
+          "lm-train", "lm-learn", "lm-parity")
+
+
+def _phases_wanted(argv):
+    """`--only a,b,...` runs the build and those phases and prints no
+    result line; no arguments run every phase."""
+    only = set(PHASES)
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or not set(argv[1].split(",")) <= only:
+            raise SystemExit(f"usage: chip_smoke.py [--only {','.join(PHASES)}]")
+        only = set(argv[1].split(","))
+
+    def want(name):
+        return name in only
+
+    want.only, want.partial = only, only != set(PHASES)
+    return want
+
+
 def main() -> int:
     # cuBLAS reproducibility under use_deterministic_algorithms (tparity);
     # must be set before CUDA initialises
@@ -1225,6 +1288,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
+    want = _phases_wanted(sys.argv[1:])
     try:
         t0 = time.perf_counter()
         regs = build_phase()
@@ -1233,69 +1297,84 @@ def main() -> int:
         for name, lines in regs.items():
             print(f"  ptxas {name}: {lines}", flush=True)
 
-        print("[kernel] K4 vs its plain version", flush=True)
-        cases = kernel_phase(torch, dev)
-        print("KERNEL_CASES " + json.dumps(cases), flush=True)
+        if want("kernel"):
+            print("[kernel] K4 vs its plain version", flush=True)
+            cases = kernel_phase(torch, dev)
+            print("KERNEL_CASES " + json.dumps(cases), flush=True)
 
-        print("[k1] K1 vs its plain version (bit-equal)", flush=True)
-        k1_cases = k1_phase(torch, dev)
-        print("K1_CASES " + json.dumps(k1_cases), flush=True)
+        if want("k1"):
+            print("[k1] K1 vs its plain version (bit-equal)", flush=True)
+            k1_cases = k1_phase(torch, dev)
+            print("K1_CASES " + json.dumps(k1_cases), flush=True)
 
-        print("[k2] K2 vs its plain version", flush=True)
-        k2_cases = k2_phase(torch, dev)
-        print("K2_CASES " + json.dumps(k2_cases), flush=True)
+        if want("k2"):
+            print("[k2] K2 vs its plain version", flush=True)
+            k2_cases = k2_phase(torch, dev)
+            print("K2_CASES " + json.dumps(k2_cases), flush=True)
 
-        print("[k3] K3 vs its plain version", flush=True)
-        k3_cases = k3_phase(torch, dev)
-        print("K3_CASES " + json.dumps(k3_cases), flush=True)
-        torch.cuda.empty_cache()
+        if want("k3"):
+            print("[k3] K3 vs its plain version", flush=True)
+            k3_cases = k3_phase(torch, dev)
+            print("K3_CASES " + json.dumps(k3_cases), flush=True)
+            torch.cuda.empty_cache()
 
-        print("[slice] gemma3-12b full width/depth, M=2, continuous", flush=True)
-        report["slice"] = slice_phase(torch)
-        print("SLICE " + json.dumps(report["slice"]), flush=True)
-        torch.cuda.empty_cache()
+        if want("slice"):
+            print("[slice] gemma3-12b full width/depth, M=2, continuous", flush=True)
+            report["slice"] = slice_phase(torch)
+            print("SLICE " + json.dumps(report["slice"]), flush=True)
+            torch.cuda.empty_cache()
 
-        print("[parity] full width, 6+6 layers, f32: continuous == sequential",
-              flush=True)
-        report["parity"] = parity_phase(torch)
-        print("PARITY " + json.dumps(report["parity"]), flush=True)
-        torch.cuda.empty_cache()
+        if want("parity"):
+            print("[parity] full width, 6+6 layers, f32: continuous == sequential",
+                  flush=True)
+            report["parity"] = parity_phase(torch)
+            print("PARITY " + json.dumps(report["parity"]), flush=True)
+            torch.cuda.empty_cache()
 
-        report["train"] = []
-        for arch, b, leaves in TRAIN_RUNS:
-            print(f"[train] {arch} full width/depth, mtsl, {ROUNDS} rounds", flush=True)
-            res, state = train_phase(torch, dev, arch, b, leaves)
-            if arch == "paper-resnet16":
-                res["profile"] = train_profile_phase(torch, dev, state)
-            del state
-            report["train"].append(res)
-            print("TRAIN " + json.dumps(res), flush=True)
+        if want("train"):
+            report["train"] = []
+            for arch, b, leaves in TRAIN_RUNS:
+                print(f"[train] {arch} full width/depth, mtsl, {ROUNDS} rounds",
+                      flush=True)
+                res, state = train_phase(torch, dev, arch, b, leaves)
+                if arch == "paper-resnet16":
+                    res["profile"] = train_profile_phase(torch, dev, state)
+                del state
+                report["train"].append(res)
+                print("TRAIN " + json.dumps(res), flush=True)
 
-        print("[tparity] paper-resnet16, 3 masked rounds: card == CPU; seeded "
-              "repeatability", flush=True)
-        report["tparity"] = train_parity_phase(torch)
-        print("TPARITY " + json.dumps(report["tparity"]), flush=True)
-        torch.cuda.empty_cache()
+        if want("tparity"):
+            print("[tparity] paper-resnet16, 3 masked rounds: card == CPU; seeded "
+                  "repeatability", flush=True)
+            report["tparity"] = train_parity_phase(torch)
+            print("TPARITY " + json.dumps(report["tparity"]), flush=True)
+            torch.cuda.empty_cache()
 
-        print(f"[lm-train] {LM_TRAIN['arch']} full width/depth, M={LM_TRAIN['M']}, "
-              f"S={LM_TRAIN['S']}, SGD, {LM_TRAIN['rounds']} rounds", flush=True)
-        report["lm_train"] = lm_train_phase(torch, dev)
-        print("LM_TRAIN " + json.dumps(report["lm_train"]), flush=True)
-        torch.cuda.empty_cache()
+        if want("lm-train"):
+            print(f"[lm-train] {LM_TRAIN['arch']} full width/depth, M={LM_TRAIN['M']}, "
+                  f"S={LM_TRAIN['S']}, SGD, {LM_TRAIN['rounds']} rounds", flush=True)
+            report["lm_train"] = lm_train_phase(torch, dev)
+            print("LM_TRAIN " + json.dumps(report["lm_train"]), flush=True)
+            torch.cuda.empty_cache()
 
-        print(f"[lm-learn] {LM_LEARN['arch']} full config, adamw, "
-              f"{LM_LEARN['rounds']} rounds", flush=True)
-        report["lm_learn"] = lm_learn_phase(torch, dev)
-        print("LM_LEARN " + json.dumps(report["lm_learn"]), flush=True)
-        torch.cuda.empty_cache()
+        if want("lm-learn"):
+            print(f"[lm-learn] {LM_LEARN['arch']} full config, adamw, "
+                  f"{LM_LEARN['rounds']} rounds", flush=True)
+            report["lm_learn"] = lm_learn_phase(torch, dev)
+            print("LM_LEARN " + json.dumps(report["lm_learn"]), flush=True)
+            torch.cuda.empty_cache()
 
-        print("[lm-parity] smoke zamba2-7b and mamba2-130m: card == CPU; seeded "
-              "repeatability", flush=True)
-        report["lm_parity"] = lm_parity_phase(torch)
-        print("LM_PARITY " + json.dumps(report["lm_parity"]), flush=True)
+        if want("lm-parity"):
+            print("[lm-parity] smoke zamba2-7b and mamba2-130m: card == CPU; seeded "
+                  "repeatability", flush=True)
+            report["lm_parity"] = lm_parity_phase(torch)
+            print("LM_PARITY " + json.dumps(report["lm_parity"]), flush=True)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")
+    if want.partial:  # a subset of the phases: no result line
+        print(f"chip_smoke: phases {sorted(want.only)} passed", flush=True)
+        return 0
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k4 = dict(K4, launches=report["slice"]["k4_launches"],

@@ -4,7 +4,9 @@ plain C interface, loaded through `ctypes`.
 A library is built on first use, for `sm_90a` (Hopper), into
 `build/repro_torch/` at the root of the checkout. Its file name carries a
 hash of the sources and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs when a module is imported.
+library is never loaded; a header that a source includes enters the hash
+too, when the caller names it. Nothing here runs when a module is
+imported.
 """
 from __future__ import annotations
 
@@ -39,13 +41,24 @@ def nvcc_path() -> str:
     return found
 
 
-def load_cuda_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
-    """Build (if needed) and load `lib<name>-<hash>.so` from `sources`.
-    Callers cache the handle (and set its argtypes) once."""
+def library_path(name: str, sources: Sequence[Path],
+                 headers: Sequence[Path] = ()) -> Path:
+    """Where the library built from `sources` lives: its name carries a
+    hash of the flags, the sources and every header they include (the
+    headers are named by the caller; nvcc does not report them), so an
+    edit to any of them gives a new path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(Path(src).read_bytes())
-    lib_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    for f in (*sources, *headers):
+        h.update(Path(f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_cuda_library(name: str, sources: Sequence[Path],
+                      headers: Sequence[Path] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load `lib<name>-<hash>.so` from `sources`,
+    which include `headers`. Callers cache the handle (and set its
+    argtypes) once."""
+    lib_path = library_path(name, sources, headers)
     log_path = lib_path.with_suffix(".ptxas.txt")
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -22,17 +22,32 @@ import torch
 from repro_torch.kernels.build import load_cuda_library
 from repro_torch.kernels.flash_attention.ref import mha_grouped, mha_reference
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
+_KERNELS = Path(__file__).resolve().parents[1]
+SOURCES = (_KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",)
+HEADERS = (_KERNELS / "common" / "csrc" / "hopper.cuh",)
 MAX_HEAD_DIM = 256  # kMaxD in the source; D must also be a multiple of 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def tile_config(D: int) -> tuple:
+    """(DP, BK) of the bf16 kernel for head dim D: D padded to whole
+    64-column (128-byte) blocks, and the key rows per tile: 128 at
+    DP = 128 (zamba2's D = 112), 64 otherwise. Above 128, O's registers
+    (DP / 2 per thread) leave room for a 64-key score tile only; at 64,
+    the 128-key tile measured no faster. The source instantiates exactly
+    these pairs (launch_tc)."""
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: no tiles for D={D}")
+    dp = -(-D // 64) * 64
+    return dp, (128 if dp == 128 else 64)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = load_cuda_library("flash_attention", SOURCES)
+    lib = load_cuda_library("flash_attention", SOURCES, HEADERS)
     fn = lib.repro_flash_attention
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, I, P, P]
+    fn.argtypes = [I, P, P, P, P, I, I, I, I, I, I, I, I, P, I, I, P]
     fn.restype = I
     lib.repro_flash_attention_error_string.argtypes = [I]
     lib.repro_flash_attention_error_string.restype = ctypes.c_char_p
@@ -43,6 +58,13 @@ def _check(q, k, v, window):
     if not (k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q is on CUDA, so k and v must be "
                          "on the same card")
+    check_layout(q, k, v, window)
+
+
+def check_layout(q, k, v, window):
+    """Raise on what the kernel does not take: dtypes, shapes, head dims,
+    strides and alignment (the TMA maps need 16-byte aligned rows). Reads
+    only metadata, so it runs on tensors anywhere."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q/k/v must share a dtype among "
                          f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -59,7 +81,7 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: kernel takes D a multiple of 8 up "
                          f"to {MAX_HEAD_DIM}; got D={D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # rows are loaded with 16-byte loads of 8 elements
+        # rows are loaded 16 bytes at a time (f32) or by TMA (bf16)
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} needs unit stride over "
@@ -76,11 +98,12 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
+    dp, bk = tile_config(D)
     lib = _lib()
     rc = lib.repro_flash_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal), window,
-        ctypes.cast(strides, ctypes.c_void_p),
+        ctypes.cast(strides, ctypes.c_void_p), dp, bk,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         msg = lib.repro_flash_attention_error_string(rc).decode()

@@ -6,6 +6,11 @@ Model code calls flash_decode(q, k, v, kv_valid=...) in the cache layout
 `ref.py`; CUDA tensors go to the hand-written kernel, or the wrapper
 raises. The kernel reads the cache through its strides, so unlike the
 reference wrapper nothing is transposed.
+
+The bf16 kernel splits the cache into fixed runs of SPLIT_ROWS rows and
+merges the splits in the same launch: the wrapper sizes its scratch from
+the buffer's capacity (`split_plan`), never from kv_valid, so it never
+waits on the card.
 """
 from __future__ import annotations
 
@@ -18,18 +23,42 @@ import torch
 from repro_torch.kernels.build import load_cuda_library
 from repro_torch.kernels.flash_decode.ref import decode_reference, per_row
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",)
+_KERNELS = Path(__file__).resolve().parents[1]
+SOURCES = (_KERNELS / "flash_decode" / "csrc" / "flash_decode.cu",)
+HEADERS = (_KERNELS / "common" / "csrc" / "hopper.cuh",)
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the source instantiates
 MAX_HEAD_DIM = 256  # kMaxD in the source; D must also be a multiple of 8
+SPLIT_ROWS = 64  # kSplit in the source: cache rows per split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# per (device, stream): the bf16 kernel's int32 counters, one per (row, kv
+# head); zeroed once, and every launch leaves them at zero
+_COUNTERS = {}
+
+
+def split_plan(B: int, Hkv: int, cap: int, G: int, D: int) -> dict:
+    """The bf16 kernel's grid and scratch for a [B, cap, Hkv, D] cache and
+    G query heads per kv head: splits = ceil(cap / SPLIT_ROWS) fixed runs
+    of rows; the f32 partials [B, Hkv, splits, G, D + 2] (acc over D, then
+    m and l); and the counters [B * Hkv]."""
+    splits = -(-cap // SPLIT_ROWS)
+    return {"splits": splits, "partials": (B, Hkv, splits, G, D + 2),
+            "counters": (B * Hkv,)}
+
+
+def _counters(device, stream, n: int) -> torch.Tensor:
+    key = (device, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = load_cuda_library("flash_decode", SOURCES)
+    lib = load_cuda_library("flash_decode", SOURCES, HEADERS)
     fn = lib.repro_flash_decode
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, P]
+    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, P]
     fn.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -42,6 +71,14 @@ def _check(q, k, v, kv_valid, q_offset, window):
                          "q_offset must be too")
     if len({q.device, k.device, v.device, kv_valid.device, q_offset.device}) != 1:
         raise ValueError("flash_decode: tensors on different devices")
+    check_layout(q, k, v, kv_valid, q_offset, window)
+
+
+def check_layout(q, k, v, kv_valid, q_offset, window):
+    """Raise on what the kernel does not take: dtypes, shapes, groups, head
+    dims, strides and alignment (the bulk copies move 16-byte aligned rows
+    of a multiple of 16 bytes). Reads only metadata, so it runs on tensors
+    anywhere."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_decode: q/k/v must share a dtype among "
                          f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -63,7 +100,7 @@ def _check(q, k, v, kv_valid, q_offset, window):
     if k.stride(-1) != 1 or k.stride() != v.stride():
         raise ValueError(f"flash_decode: k and v need unit stride over D and "
                          f"equal strides; got {k.stride()}, {v.stride()}")
-    # each lane loads 8 consecutive elements of a row with 16-byte loads
+    # 16-byte loads (f32) and bulk copies (bf16) of whole rows
     if any(s % 8 for s in k.stride()[:3]) or any(
             t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_decode: q/k/v rows must be 16-byte aligned "
@@ -97,13 +134,23 @@ def flash_decode(
     window = int(window)
     _check(q, k, v, kv_valid, q_offset, window)
     out = torch.empty_like(q)
+    Hkv, cap = k.shape[2], k.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part = counter = None
+    splits = 0
+    if q.dtype == torch.bfloat16:
+        plan = split_plan(B, Hkv, cap, Hq // Hkv, D)
+        splits = plan["splits"]
+        part = torch.empty(plan["partials"], dtype=torch.float32, device=q.device)
+        counter = _counters(q.device, stream, plan["counters"][0])
     lib = _lib()
     rc = lib.repro_flash_decode(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), kv_valid.data_ptr(), q_offset.data_ptr(),
-        B, Hq, k.shape[2], D, k.shape[1], window,
-        k.stride(0), k.stride(1), k.stride(2),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None if part is None else part.data_ptr(),
+        None if counter is None else counter.data_ptr(), splits,
+        B, Hq, Hkv, D, cap, window,
+        k.stride(0), k.stride(1), k.stride(2), stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: {msg} ({rc})")

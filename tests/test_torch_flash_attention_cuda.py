@@ -10,6 +10,12 @@ Cases: the reference's FLASH_CASES shapes that are causal
 a fused projection), and the zamba2-7b path's shape (B = 2, H = 32,
 S = 2048, D = 112). Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
 Also a row with no visible key: the kernel gives 0, as the TPU kernel does.
+
+The bf16 kernel (wgmma, TMA) is also held over a grid of head dims (each
+tile configuration of ops.tile_config), masks and lengths that are not
+tile multiples, with K2's relative L2 limit of 5e-3 beside the elementwise
+one; with GQA 4, D = 24 (padded to a 16-wide k-step), strided views, no
+causal mask, and two launches that must be bit-equal.
 """
 import numpy as np
 import pytest
@@ -30,6 +36,17 @@ CASES = [
     (2, 2048, 32, 32, 112, 0, "bfloat16"),  # zamba2-7b's shared attention
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+REL_L2 = {"float32": 2e-5, "bfloat16": 5e-3}
+BF16_GRID = [  # (B, S, Hq, Hkv, D, window, "bfloat16")
+    (1, S, 2, 1, D, window, "bfloat16")
+    for D in (64, 112, 128, 256) for window in (0, 100, 1024)
+    for S in (200, 1000, 2048)
+]
+BF16_MORE = [
+    (2, 1000, 16, 4, 112, 0, "bfloat16"),   # GQA 4
+    (2, 300, 4, 2, 24, 0, "bfloat16"),      # D = 24: one 16-wide step padded
+    (1, 130, 2, 2, 8, 16, "bfloat16"),      # D = 8, a window inside a tile
+]
 
 
 def _inputs(case, seed=0):
@@ -57,6 +74,59 @@ def test_cuda_kernel_matches_plain(case):
     assert mha_reference.cuda_calls == plain
     ref = mha_reference(q, k, v, causal=True, window=window)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _check_bf16(out, ref):
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= REL_L2["bfloat16"], rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_GRID + BF16_MORE)
+def test_cuda_bf16_kernel_matches_plain(case):
+    _skip_without_card()
+    q, k, v = _inputs(case, seed=5)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=case[5])
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    _check_bf16(out, mha_reference(q, k, v, causal=True, window=case[5]))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_without_causal_mask():
+    """causal=False with a window: a row sees the keys j with i - j < w,
+    the later ones included."""
+    _skip_without_card()
+    q, k, v = _inputs((1, 300, 4, 2, 64, 50, "bfloat16"), seed=6)
+    out = flash_attention(q, k, v, causal=False, window=50)
+    _check_bf16(out, mha_reference(q, k, v, causal=False, window=50))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_reads_strided_views():
+    """bf16 q, k, v as views of one fused [B, S, 3, H, D] projection: the
+    TMA maps walk the strides."""
+    _skip_without_card()
+    rng = np.random.default_rng(7)
+    qkv = torch.tensor(rng.normal(size=(2, 333, 3, 4, 112)), dtype=torch.bfloat16,
+                       device="cuda")
+    q, k, v = qkv.unbind(2)
+    out = flash_attention(q, k, v, causal=True, window=0)
+    _check_bf16(out, mha_reference(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 2048, 32, 32, 112, 0, "bfloat16"),
+                                  (1, 1000, 8, 2, 256, 100, "bfloat16")])
+def test_cuda_bf16_two_launches_are_bit_equal(case):
+    _skip_without_card()
+    q, k, v = _inputs(case, seed=8)
+    a = flash_attention(q, k, v, causal=True, window=case[5])
+    b = flash_attention(q, k, v, causal=True, window=case[5])
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

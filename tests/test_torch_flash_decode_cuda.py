@@ -8,6 +8,12 @@ a machine that has only PyTorch:
 Cases: the reference's DECODE_CASES shapes (tests/test_kernels.py), a
 windowed case with every row's window past the first KV tile, and the
 gemma3-12b shapes. Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
+
+The bf16 kernel (split-KV over fixed runs of 64 cache rows, merged in the
+same launch) is also held at every G, at caps that are not multiples of 64,
+with kv_valid of 0, 1 and cap, and for what its design promises: the same
+rows give bit-equal outputs in a cap-320 and a cap-4096 buffer, two
+launches are bit-equal, and its counters are left at zero.
 """
 import numpy as np
 import pytest
@@ -27,6 +33,13 @@ CASES = [
     (8, 512, 16, 8, 256, 1024, "bfloat16", False),
     (8, 4096, 16, 8, 256, 1024, "bfloat16", False),
     (8, 512, 16, 8, 256, 1024, "float32", False),
+    # bf16 split-KV: every G, caps that are not multiples of 64, windows
+    (3, 200, 8, 8, 128, 0, "bfloat16", False),
+    (3, 200, 8, 4, 64, 0, "bfloat16", False),
+    (5, 320, 16, 8, 256, 1024, "bfloat16", False),
+    (4, 1000, 16, 4, 256, 0, "bfloat16", False),
+    (2, 777, 16, 2, 96, 100, "bfloat16", True),
+    (2, 4096, 16, 8, 256, 0, "bfloat16", False),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -79,3 +92,53 @@ def test_cuda_kernel_reads_a_slot_view_and_rejects_bad_input():
     v_odd = torch.cat([v, v[..., :1]], dim=-1)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
         flash_decode(q, k_odd, v_odd, **kw)
+
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1024, 7])
+def test_cuda_bf16_kv_valid_0_1_and_cap(window):
+    """kv_valid 0 (nothing visible: 0), 1 (one row) and cap (all rows)."""
+    _skip_without_card()
+    q, k, v, _ = _inputs((3, 320, 16, 8, 256, 0, "bfloat16", False), seed=12)
+    kv_valid = torch.tensor([0, 1, 320], dtype=torch.int32, device="cuda")
+    kw = dict(kv_valid=kv_valid, q_offset=kv_valid - 1, window=window)
+    out = flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert float(out[0].abs().max()) == 0.0
+    torch.testing.assert_close(out.float(), decode_reference(q, k, v, **kw).float(),
+                               rtol=0, atol=TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 1024])
+def test_cuda_bf16_output_does_not_depend_on_cap(window):
+    """The same visible rows in a cap-320 and a cap-4096 buffer (the rest
+    filled with other values) give bit-equal outputs: the split boundaries
+    are absolute, and splits past kv_valid do nothing."""
+    _skip_without_card()
+    q, k, v, _ = _inputs((4, 320, 16, 8, 256, 0, "bfloat16", False), seed=13)
+    big_k, big_v = (torch.randn(4, 4096, 8, 256, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    big_k[:, :320], big_v[:, :320] = k, v
+    kv_valid = torch.tensor([1, 64, 200, 320], dtype=torch.int32, device="cuda")
+    kw = dict(kv_valid=kv_valid, q_offset=kv_valid - 1, window=window)
+    assert torch.equal(flash_decode(q, k, v, **kw), flash_decode(q, big_k, big_v, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_two_launches_are_bit_equal_and_counters_stay_zero():
+    _skip_without_card()
+    from repro_torch.kernels.flash_decode import ops
+
+    q, k, v, kw = _inputs((8, 4096, 16, 8, 256, 0, "bfloat16", False), seed=14)
+    a = flash_decode(q, k, v, **kw)
+    b = flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    for c in ops._COUNTERS.values():
+        assert int(c.abs().sum()) == 0
