@@ -25,11 +25,13 @@ Phases, each of which must pass (any failure exits non-zero):
           paper-resnet16 and paper-mlp with M = 10 (towers with one step
           size per client, the server with one), a flat 2^26-element leaf
           in f32 and bf16 (scalar step), and an odd 2003-element leaf (the
-          scalar tail). Each must be bit-equal.
+          scalar tail), each through the per-leaf call; then each whole
+          tree through the multi-tensor call (mtsl_update_multi_, one
+          launch), as the train path updates it. Each must be bit-equal.
           Times the kernel, the plain version and one PyTorch call of the
-          same function (`add_` / `addcmul_`, a yardstick only), each
-          behind an L2 flush; the bound is 3 * numel * itemsize bytes over
-          3.35 TB/s.
+          same function (`add_` / `addcmul_`, `_foreach_addcmul_` for a
+          tree; a yardstick only), each behind an L2 flush; the bound is
+          3 * numel * itemsize bytes over 3.35 TB/s.
   slice   gemma3-12b at full width and full depth (48 layers), M = 2
           clients, random weights from a seed, served through
           `repro_torch.launch.serve` (continuous engine, --bench): 8
@@ -48,9 +50,10 @@ Phases, each of which must pass (any failure exits non-zero):
           cadence (every 20 rounds, the only host syncs). Checks that the
           launcher turned TF32 off, finite logged losses, a falling loss
           (round 200's below the mean of rounds 1 and 20), and that every
-          parameter update launched K1: launches == leaves x rounds
-          (17 x 200, 8 x 200), with the plain update run 0 times on the
-          card. Reports rounds/s, samples/s, peak memory, acc_mtl on a
+          parameter update went through K1 in one launch a round: leaves
+          updated == leaves x rounds (17 x 200, 8 x 200) and multi-tensor
+          launches == rounds, with no per-leaf launch and the plain update
+          run 0 times on the card. Reports rounds/s, samples/s, peak memory, acc_mtl on a
           held-out batch, and a torch.profiler pass over 20 more resnet
           rounds (device vs wall ms per round, K1's share, top kernels).
   tparity full paper-resnet16, M = 10, b = 8, TF32 off, participation
@@ -63,7 +66,8 @@ Phases, each of which must pass (any failure exits non-zero):
           0.01 losses within 1e-5 relative and every parameter within
           1e-5; at lr 0.1 losses within 1e-5 relative and the parameter
           gap reported (the f32 gradient gap times the step exceeds 1e-5
-          there). Then two 20-round card runs from one seed under
+          there); each card round updates its 17 leaves in one K1 launch.
+          Then two 20-round card runs from one seed under
           torch.use_deterministic_algorithms(True): bit-equal parameters.
 
   k2      K2 against its plain version (mha_reference) on the LM path's
@@ -80,14 +84,21 @@ Phases, each of which must pass (any failure exits non-zero):
   k3      K3 against its plain version (ssd_reference) on zamba2-7b's
           server shape (B = 2, L = 2048, H = 112, P = N = 64, chunk 128,
           bf16), its tower shape (B = 1), mamba2-130m's (B = 16, L = 256,
-          H = 24, P = 64, N = 128) and in f32 with an initial state: y
-          within 5e-2 in bf16 and 2e-5 in f32 (absolute plus relative: y
-          reaches 8 and more, where one bf16 rounding step is 0.0625), the
-          final state within 1e-4 of its scale. Times the kernel and the plain version (no PyTorch
-          call computes the SSD scan); the bound is the larger of the
-          bytes (x, dt, B, C in, y and the state out, once) over 3.35 TB/s
-          and the chunked algorithm's flops at the reference's chunk over
-          the dtype's peak.
+          H = 24, P = 64, N = 128), bf16 with an initial state, and in f32
+          with an initial state: y within 5e-2 in bf16 and 2e-5 in f32
+          (absolute plus relative: y reaches 8 and more, where one bf16
+          rounding step is 0.0625) and as a whole, ||y - y_plain|| /
+          ||y_plain|| within K3_REL_L2; the final state within an absolute
+          1e-4. Each bf16 case also reports how much of y's error is the
+          output's own bf16 rounding and how much the kernel's (W rounded
+          to bf16 in W x), against the plain version run in f32 on the same
+          inputs. Each case launches twice: the outputs must be bit-equal.
+          Reports each case's path (scan_plan: the tensor-core path for
+          bf16, FMA for f32). Times the kernel and the plain version (no
+          PyTorch call computes the SSD scan); the bound is the larger of
+          the bytes (x, dt, B, C in, y and the state out, once) over 3.35
+          TB/s and the chunked algorithm's flops at the reference's chunk
+          over the dtype's peak, and bound_share = bound / kernel time.
   lm-train  zamba2-7b at full width and depth (81 layers, d_model 3584),
           M = 2 clients, b = 1, S = 2048, SGD, 3 mtsl rounds through
           train/loop.py::train and the registry, on
@@ -96,12 +107,19 @@ Phases, each of which must pass (any failure exits non-zero):
           builds dense [V, V] f64 chains (8.2 GB each at 32,000). Checks a
           finite loss every round, K2 and K3 launches per round equal to
           2 (remat: forward + recompute) x (M x tower layers + server
-          layers) of each kind, and no plain K2 / K3 forward on the card.
+          layers) of each kind, every K3 launch on the tensor-core path, no
+          plain K2 / K3 forward on the card, and K1 once a round over every
+          leaf (launches == rounds, leaves updated == leaves x rounds).
           Reports s per round, peak memory, and a torch.profiler pass over
-          one more round (device busy share, top kernels).
+          one more round (device busy share, top kernels). Then, with the
+          model freed, K1 against its plain version on every leaf shape of
+          the trained tree at full width (7.26 B elements, random p and g),
+          in batches of up to 2^30 elements, each one multi-tensor launch
+          over many leaves: bit-equal.
   lm-learn  mamba2-130m at its full config, M = 4, b = 4, S = 256, adamw at
           lr 3e-3 (the LM example's), 100 rounds on a 4096-token
-          MultiTaskLMSource: the loss must fall; reports each task's
+          MultiTaskLMSource: the loss must fall, and every K3 launch takes
+          the tensor-core path; reports each task's
           held-out loss beside its chain's entropy floor, the host time to
           draw one round's tokens, and a torch.profiler pass over one more
           round.
@@ -113,6 +131,11 @@ Phases, each of which must pass (any failure exits non-zero):
           torch.use_deterministic_algorithms(True, warn_only=True): bit-equal
           parameters (the ops that have no deterministic algorithm are
           reported).
+
+Each kernel time is the median of single calls timed by CUDA events, each
+behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
+queue the call before the start event runs, so the host's wrapper time is
+not counted; K1's tree call_ms leaves the spin out to count it.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line, and as its last line `{"ok": true, "device": {...}}`.
@@ -137,6 +160,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off tensor cores
+HEAD_START_CYCLES = 400_000  # _median_ms's spin before each timed launch
 K4 = {"name": "flash_decode", "route": "cuda",
       "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
       "replaces": "src/repro/kernels/flash_decode/kernel.py:101"}
@@ -163,8 +187,14 @@ K3_CASES = [  # (case, B, L, H, P, N, chunk, dtype, initial state)
     ("zamba2_server", 2, 2048, 112, 64, 64, 128, "bfloat16", False),
     ("zamba2_tower", 1, 2048, 112, 64, 64, 128, "bfloat16", False),
     ("mamba2_130m", 16, 256, 24, 64, 128, 128, "bfloat16", False),
+    ("bf16_state", 2, 2048, 112, 64, 64, 128, "bfloat16", True),
     ("f32_state", 2, 512, 8, 64, 64, 128, "float32", True),
 ]
+# K3's outputs as a whole, ||y - y_plain|| / ||y_plain||: the elementwise
+# limit above lets a bf16 step through at |y| ~ 8. Set from the readings on
+# an H100 (PERF.md): 2.58e-3 to 2.62e-3 in the bf16 cases (the output's own
+# rounding is 1.66e-3 of it), 4.1e-7 in f32; about twice and five times that
+K3_REL_L2 = {"bfloat16": 5e-3, "float32": 2e-6}
 LM_TRAIN = {"arch": "zamba2-7b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
             "lr": 0.05, "data_vocab": 4096}
 LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 100,
@@ -175,7 +205,10 @@ K1_FLAT_CASES = [
     ("flat_2^26_bf16", (1 << 26,), 1, "bfloat16"),
     ("odd_2003_f32", (2003,), 1, "float32"),
 ]
-K1_MAIN_CASE = "paper-resnet16/towers/stage1/b0/conv2/w"  # [10, 3, 3, 32, 32]
+# lm-train's full-width K1 check: elements per batch of leaves (p, g and
+# the plain result, 12 GiB in f32 at 2^30)
+K1_BATCH_ELEMENTS = 1 << 30
+K1_MAIN_CASE = "tree:paper-resnet16"  # the train path's one launch a round
 TRAIN_RUNS = [  # (arch, batch per client, K1 leaves per round)
     ("paper-resnet16", 8, 17),
     ("paper-mlp", 16, 8),
@@ -198,7 +231,10 @@ def _fail(msg: str) -> int:
     return 1
 
 
-def _median_ms(fn, iters: int, flush) -> float:
+def _median_ms(fn, iters: int, flush, head_start: bool = True) -> float:
+    """Median of `iters` timed calls of fn, each behind an L2 flush. With
+    head_start the card's work alone; without, the host's time to issue fn
+    too, wherever the card waits for it."""
     import torch
 
     for _ in range(2):
@@ -207,6 +243,11 @@ def _median_ms(fn, iters: int, flush) -> float:
     pairs = []
     for _ in range(iters):
         flush.zero_()  # the serving path finds each layer's cache cold in L2
+        # ~0.2 ms of spinning on the card, so that the host has queued fn's
+        # first launch before the start event runs: the events then time the
+        # card's work, not the host's wrapper
+        if head_start:
+            torch.cuda._sleep(HEAD_START_CYCLES)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         fn()
@@ -492,8 +533,70 @@ def k1_phase(torch, dev):
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library "
               f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms",
               flush=True)
+    for arch, _, _ in TRAIN_RUNS:
+        rows_out.append(_k1_tree_case(torch, dev, gen, flush, arch))
     del flush
     return rows_out
+
+
+def _k1_tree_case(torch, dev, gen, flush, arch):
+    """The whole initial tree of full `arch` (M = 10) through the
+    multi-tensor call, as the train path's apply step updates it: towers
+    with one step size per client (one of them 0), the server with one."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mtsl import init_state
+    from repro_torch.core.split import is_client_path
+    from repro_torch.kernels.mtsl_update.ops import (launch_table, leaf_table,
+                                                     mtsl_update_multi_)
+    from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    cfg = get_config(arch)
+    M = cfg.num_clients
+    tree = init_state(build_model(cfg), torch.Generator().manual_seed(0), M)
+    eta_t = torch.rand(M, generator=gen, device=dev) * 10
+    eta_t[0] = 0.0
+    eta_s = torch.rand(1, generator=gen, device=dev) * 10
+    ps, gs, etas = [], [], []
+    for path, leaf in tree_leaves_with_path(tree):
+        ps.append(torch.randn(leaf.shape, generator=gen, device=dev))
+        gs.append(torch.randn(leaf.shape, generator=gen, device=dev))
+        etas.append(eta_t if is_client_path(path) else eta_s)
+    refs = [mtsl_update_reference(p, g, e) for p, g, e in zip(ps, gs, etas)]
+    out = mtsl_update_multi_([p.clone() for p in ps], gs, etas)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(out, refs))
+    if not all(torch.equal(a, b) for a, b in zip(out, refs)):
+        raise AssertionError(f"K1 tree {arch}: kernel != plain (max |diff| {err})")
+    pk = [p.clone() for p in ps]
+    pl = [p.clone().view(e.numel(), -1) for p, e in zip(ps, etas)]
+    gl = [g.view(e.numel(), -1) for g, e in zip(gs, etas)]
+    el = [e[:, None] for e in etas]
+    numel = sum(p.numel() for p in ps)
+    table, pieces = leaf_table(pk, gs, etas)
+    table = torch.from_numpy(table).to(dev)
+    row = {
+        "case": f"tree:{arch}", "leaves": len(ps), "numel": numel,
+        "dtype": "float32", "max_abs_err": err, "bit_equal": True,
+        # the kernel alone, on one table; then the call as a round makes it
+        # (the host builds the table, copies it, launches)
+        "ms": _median_ms(lambda: launch_table(table, pieces), 50, flush),
+        "call_ms": _median_ms(lambda: mtsl_update_multi_(pk, gs, etas), 50, flush,
+                              head_start=False),
+        "plain_ms": _median_ms(lambda: [mtsl_update_reference(p, g, e) for p, g, e
+                                        in zip(ps, gs, etas)], 20, flush),
+        "library_ms": _median_ms(lambda: torch._foreach_addcmul_(pl, el, gl, value=-1),
+                                 20, flush),
+        "bound_ms": 3 * numel * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"  K1 tree {arch} ({len(ps)} leaves, {numel} elements) one launch: "
+          f"bit-equal  kernel {row['ms']:.4f} ms  call {row['call_ms']:.4f} ms  "
+          f"plain {row['plain_ms']:.4f} ms  "
+          f"library {row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms "
+          f"(share {row['bound_share']:.3f})", flush=True)
+    return row
 
 
 def _held_out_batch(cfg, M, per_task=64, seed=123):
@@ -519,7 +622,7 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
 
     from repro_torch.configs import get_config
     from repro_torch.core.algorithms import get_algorithm
-    from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
     from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
     from repro_torch.launch import train as launch_train
     from repro_torch.models.registry import build_model
@@ -533,6 +636,7 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
         torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the
         # launcher must turn it off itself
     mtsl_update_.launches = 0
+    mtsl_update_multi_.launches = mtsl_update_multi_.leaves = 0
     mtsl_update_reference.cuda_calls = 0
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -541,7 +645,8 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain = mtsl_update_.launches, mtsl_update_reference.cuda_calls
+    launches, updated = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
+    single, plain = mtsl_update_.launches, mtsl_update_reference.cuda_calls
     if dev.type == "cuda" and (torch.backends.cudnn.allow_tf32
                                or torch.backends.cuda.matmul.allow_tf32):
         raise AssertionError(f"{arch}: the launcher left TF32 on")
@@ -555,9 +660,12 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
     first, last = loss[r <= 20].mean(), loss[r > rounds - 20].mean()
     if not last < first:
         raise AssertionError(f"{arch}: loss did not fall ({first} -> {last})")
-    if dev.type == "cuda" and not (launches == leaves * rounds and plain == 0):
-        raise AssertionError(f"{arch}: K1 launches {launches}, want {leaves} x "
-                             f"{rounds}; plain updates on the card {plain}")
+    if dev.type == "cuda" and not (updated == leaves * rounds and launches == rounds
+                                   and single == plain == 0):
+        raise AssertionError(f"{arch}: K1 updated {updated} leaves in {launches} "
+                             f"launches, want {leaves} x {rounds} in {rounds}; "
+                             f"per-leaf launches {single}, plain updates on the "
+                             f"card {plain}")
     cfg = get_config(arch)
     M = cfg.num_clients
     model = build_model(cfg)
@@ -566,7 +674,8 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
     steady_s = (hist[-1]["time"] - hist[0]["time"]) / (rounds - 1)
     res = {
         "arch": arch, "M": M, "batch_per_client": b, "rounds": rounds,
-        "k1_launches": launches, "k1_leaves": leaves, "plain_updates_on_card": plain,
+        "k1_launches": launches, "k1_leaves": leaves, "k1_leaves_updated": updated,
+        "plain_updates_on_card": plain,
         "loss_first20": float(first), "loss_last20": float(last),
         "final_loss": float(loss[-1]), "acc_mtl_held_out": float(ev["acc_mtl"]),
         "phase_s": wall, "ms_per_round": steady_s * 1e3,
@@ -754,7 +863,7 @@ def _card_vs_cpu_rounds(torch, lr: float, rounds: int = 3):
     from repro_torch.core.algorithms import HParams, get_algorithm
     from repro_torch.core.lr_policy import server_scaled
     from repro_torch.core.mtsl import TrainState
-    from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_multi_
     from repro_torch.train.loop import stage_batch
     from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 
@@ -766,7 +875,7 @@ def _card_vs_cpu_rounds(torch, lr: float, rounds: int = 3):
     gpu = TrainState(tree_map(lambda x: x.detach().cuda().requires_grad_(), init),
                      (), 0)
     rf_cpu, rf_gpu = alg.round_fn(model, M, hp), alg.round_fn(model, M, hp)
-    n0 = mtsl_update_.launches
+    n0, l0 = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
     per_round = []
     for batch, sched in stream:
         gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
@@ -780,8 +889,10 @@ def _card_vs_cpu_rounds(torch, lr: float, rounds: int = 3):
         per_round.append({"card_loss": lg, "cpu_loss": lc,
                           "participants": sched.num_participants,
                           "max_param_abs_diff": err, "worst_leaf": leaf})
-    if mtsl_update_.launches - n0 != 17 * rounds:
-        raise AssertionError("a card update bypassed K1 in the parity phase")
+    if not (mtsl_update_multi_.leaves - l0 == 17 * rounds
+            and mtsl_update_multi_.launches - n0 == rounds):
+        raise AssertionError("a card update bypassed K1, or K1 took more than one "
+                             "launch a round, in the parity phase")
     return per_round
 
 
@@ -899,8 +1010,33 @@ def k2_phase(torch, dev):
     return rows
 
 
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _k3_rounding(torch, y, x, dt, A, Bm, Cm, chunk, h0) -> dict:
+    """Where a bf16 K3 output's error comes from. The plain version computes
+    in f32 from the bf16 inputs and rounds y once; run on the same inputs
+    in f32 it gives that y unrounded (y32). Against y32, the kernel's y
+    carries the output's rounding and its own (W rounded to bf16 for the
+    W x product); the output's rounding alone is the plain y's error
+    against y32. Independent errors add in squares, so the kernel's own is
+    the root of the difference. {} for f32."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    if x.dtype != torch.bfloat16:
+        return {}
+    y32, _ = ssd_reference(x.float(), dt, A, Bm.float(), Cm.float(), chunk=chunk,
+                           initial_state=h0)
+    total, out = _rel_l2(y, y32), _rel_l2(y32.to(y.dtype), y32)
+    return {"rel_l2_vs_f32": total, "output_rounding_rel_l2": out,
+            "w_rounding_rel_l2": max(total * total - out * out, 0.0) ** 0.5}
+
+
 def k3_phase(torch, dev):
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import scan_plan, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -921,13 +1057,21 @@ def k3_phase(torch, dev):
         Bm, Cm = rnd(B, L, N, d=dtype), rnd(B, L, N, d=dtype)
         h0 = rnd(B, H, P, N) if with_state else None
         y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
+        y2, st2 = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
         yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        plan = scan_plan(B, L, H, P, N, dtype)
         err = (y.float() - yr.float()).abs().max().item()
         serr = (st - sr).abs().max().item()
-        if not (_allclose(y, yr, tol[dt]) and serr <= 1e-4):
+        rel_l2 = _rel_l2(y, yr)
+        if not (_allclose(y, yr, tol[dt]) and serr <= 1e-4
+                and rel_l2 <= K3_REL_L2[dt]):
             raise AssertionError(f"K3 {name}: y beyond {tol[dt]} (abs + rel; max "
-                                 f"|diff| {err}) or state max |diff| {serr} > 1e-4")
+                                 f"|diff| {err}), ||diff|| / ||ref|| {rel_l2} > "
+                                 f"{K3_REL_L2[dt]}, or state max |diff| {serr} > 1e-4")
+        split = _k3_rounding(torch, y, x, dtv, A, Bm, Cm, chunk, h0)
         elt = x.element_size()
         nbytes = (2 * B * L * H * P + 2 * B * L * N) * elt + 4 * (B * L * H + H) \
             + 4 * B * H * P * N * (2 if with_state else 1)
@@ -935,8 +1079,10 @@ def k3_phase(torch, dev):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
         row = {
             "case": name, "B": B, "L": L, "H": H, "P": P, "N": N, "chunk": chunk,
-            "dtype": dt, "initial_state": with_state, "max_abs_err": err,
-            "state_abs_err": serr,
+            "dtype": dt, "initial_state": with_state, "path": plan["path"],
+            "heads_per_block": plan["G"], "blocks": plan["grid"][0] * (
+                plan["grid"][1] if len(plan["grid"]) > 1 else 1),
+            "max_abs_err": err, "state_abs_err": serr, "rel_l2_err": rel_l2, **split,
             "ms": _median_ms(lambda: ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk,
                                               initial_state=h0), 20, flush),
             "plain_ms": _median_ms(lambda: ssd_reference(
@@ -944,38 +1090,45 @@ def k3_phase(torch, dev):
             "library_ms": None,  # no PyTorch call computes the SSD scan
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes,
+            "flops": flops, "bytes": nbytes, "repeat_bit_equal": True,
         }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        print(f"  K3 {name}: err y {err:.3g} state {serr:.3g}  kernel "
-              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-        del x, dtv, Bm, Cm, y, st, yr, sr
+        print(f"  K3 {name} ({plan['path']}, G {plan['G']}): err y {err:.3g} (l2 "
+              f"{rel_l2:.3g}; {split}) state {serr:.3g}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+              f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}, share "
+              f"{row['bound_share']:.3f})", flush=True)
+        del x, dtv, Bm, Cm, y, st, y2, st2, yr, sr
     del flush
     return rows
 
 
 def _lm_counts(torch):
-    """The LM path's counters: kernel launches and plain forwards on CUDA
-    tensors of K2 and K3, and K1's launches."""
+    """The LM path's counters, by name: (object, attribute). K2's and K3's
+    launches (K3's tensor-core ones apart) and plain forwards on CUDA
+    tensors; K1's multi-tensor launches, the leaves they updated, and its
+    per-leaf launches."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import mha_reference
-    from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
-    return {"k2": flash_attention, "k3": ssd_scan, "k1": mtsl_update_,
-            "k2_plain": mha_reference, "k3_plain": ssd_reference}
+    return {"k2": (flash_attention, "launches"), "k3": (ssd_scan, "launches"),
+            "k3_tc": (ssd_scan, "launches_tc"), "k1": (mtsl_update_multi_, "launches"),
+            "k1_leaves": (mtsl_update_multi_, "leaves"),
+            "k1_single": (mtsl_update_, "launches"),
+            "k2_plain": (mha_reference, "cuda_calls"),
+            "k3_plain": (ssd_reference, "cuda_calls")}
 
 
 def _reset_counts(torch):
-    for name, fn in _lm_counts(torch).items():
-        setattr(fn, "cuda_calls" if name.endswith("plain") else "launches", 0)
+    for obj, attr in _lm_counts(torch).values():
+        setattr(obj, attr, 0)
 
 
 def _read_counts(torch):
-    return {name: getattr(fn, "cuda_calls" if name.endswith("plain") else "launches")
-            for name, fn in _lm_counts(torch).items()}
+    return {name: getattr(obj, attr) for name, (obj, attr) in _lm_counts(torch).items()}
 
 
 def _lm_launches_per_round(cfg, M: int, microbatches: int = 1) -> dict:
@@ -1058,8 +1211,9 @@ def lm_train_phase(torch, dev):
     from repro_torch.data.pipeline import client_batches
     from repro_torch.models.registry import build_model
     from repro_torch.optim import sgd
+    from repro_torch.core.split import is_client_path
     from repro_torch.train.loop import TrainConfig, stage_batch, train
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
 
     c = LM_TRAIN
     cfg = get_config(c["arch"])
@@ -1082,11 +1236,14 @@ def lm_train_phase(torch, dev):
         raise AssertionError(f"lm-train: losses {losses}")
     want = _lm_launches_per_round(cfg, M)
     leaves = len(tree_leaves(state.params))
-    if not (counts["k2"] == want["k2"] * rounds and counts["k3"] == want["k3"] * rounds
+    if not (counts["k2"] == want["k2"] * rounds
+            and counts["k3"] == counts["k3_tc"] == want["k3"] * rounds
             and counts["k2_plain"] == counts["k3_plain"] == 0
-            and counts["k1"] == leaves * rounds):
+            and counts["k1"] == rounds and counts["k1_leaves"] == leaves * rounds
+            and counts["k1_single"] == 0):
         raise AssertionError(f"lm-train: counts {counts}, want per round {want} "
-                             f"and K1 {leaves} x {rounds}, no plain forward")
+                             f"(K3 all on the tensor cores) and K1 {leaves} leaves "
+                             f"x {rounds} in {rounds} launches, no plain forward")
     n_params = sum(x.numel() for x in tree_leaves(state.params))
     times = [e["time"] for e in hist]
     res = {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": rounds,
@@ -1099,7 +1256,63 @@ def lm_train_phase(torch, dev):
         lr=c["lr"], component_lr=server_scaled(M)))
     batch = stage_batch(next(client_batches(src, c["b"], seed=1, seq_len=c["S"])), dev)
     state, res["profile"] = _profile_round(torch, rf, state, batch, full_schedule(M, 1))
+    specs = [(tuple(x.shape), x.dtype, is_client_path(k))
+             for k, x in tree_leaves_with_path(state.params)]
     del state, batch
+    torch.cuda.empty_cache()
+    res["k1_full_width"] = _k1_full_width(torch, dev, specs, M)
+    return res
+
+
+def _k1_full_width(torch, dev, specs, M: int) -> dict:
+    """K1 against its plain version on lm-train's own leaves at full width
+    (`specs`: shape, dtype, tower or not, in tree order): random p and g for
+    every leaf, in batches of at most K1_BATCH_ELEMENTS elements (a larger
+    leaf alone) that fit on the card beside their plain results, each batch
+    one multi-tensor launch over a table of many leaves, bit-equal. Towers
+    take one step size per client (one of them 0), the server one."""
+    import math
+
+    from repro_torch.kernels.mtsl_update.ops import leaf_table, mtsl_update_multi_
+    from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    eta_t = torch.rand(M, generator=gen, device=dev) * 10
+    eta_t[0] = 0.0
+    eta_s = torch.rand(1, generator=gen, device=dev) * 10
+    batches, size = [[]], 0
+    for spec in specs:
+        n = math.prod(spec[0])
+        if batches[-1] and size + n > K1_BATCH_ELEMENTS:
+            batches.append([])
+            size = 0
+        batches[-1].append(spec)
+        size += n
+    most_leaves = most_pieces = 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        ps = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+              for shape, dtype, _ in batch]
+        gs = [torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+              for shape, dtype, _ in batch]
+        etas = [eta_t if tower else eta_s for _, _, tower in batch]
+        refs = [mtsl_update_reference(p, g, e) for p, g, e in zip(ps, gs, etas)]
+        table, pieces = leaf_table(ps, gs, etas)
+        most_leaves, most_pieces = max(most_leaves, len(table)), max(most_pieces, pieces)
+        n0 = mtsl_update_multi_.launches
+        mtsl_update_multi_(ps, gs, etas)
+        torch.cuda.synchronize()
+        bad = [shape for (shape, _, _), p, r in zip(batch, ps, refs)
+               if not torch.equal(p, r)]
+        if bad or mtsl_update_multi_.launches != n0 + 1:
+            raise AssertionError(f"K1 at full width: kernel != plain on leaves {bad}")
+        del ps, gs, refs
+    res = {"leaves": len(specs), "elements": sum(math.prod(s[0]) for s in specs),
+           "batches": len(batches), "largest_leaf": max(math.prod(s[0]) for s in specs),
+           "most_leaves_in_a_launch": most_leaves,
+           "most_pieces_in_a_launch": most_pieces, "bit_equal": True,
+           "check_s": time.perf_counter() - t0}
+    print(f"  K1 at full width: {res}", flush=True)
     return res
 
 
@@ -1136,8 +1349,10 @@ def lm_learn_phase(torch, dev):
     if not (np.isfinite(loss).all() and loss[-2:].mean() < loss[:2].mean()):
         raise AssertionError(f"lm-learn: the loss did not fall: {loss.tolist()}")
     want = _lm_launches_per_round(cfg, M)
-    if not (counts["k3"] == want["k3"] * rounds and counts["k3_plain"] == 0):
-        raise AssertionError(f"lm-learn: counts {counts}, want per round {want}")
+    if not (counts["k3"] == counts["k3_tc"] == want["k3"] * rounds
+            and counts["k3_plain"] == 0):
+        raise AssertionError(f"lm-learn: counts {counts}, want per round {want}, "
+                             f"every K3 launch on the tensor cores")
     held = stage_batch(next(client_batches(src, 8, seed=123, seq_len=c["S"])), dev)
     ev = get_algorithm("mtsl").eval_fn(model, M)(state, held)
     per = ev["per_task_loss"].cpu().numpy()

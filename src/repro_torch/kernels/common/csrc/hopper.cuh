@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's attention kernels:
-// mbarriers, TMA tensor loads and bulk copies into shared memory, wgmma
-// shared-memory descriptors and the bf16 warpgroup products (m64n64k16 and
-// m64n128k16), named barriers, register hand-over, and the host's
-// encoding of tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's attention and SSD
+// kernels: mbarriers, TMA tensor loads and bulk copies into shared memory,
+// wgmma shared-memory descriptors and the bf16 warpgroup products
+// (m64n64k16 and m64n128k16), transposed ldmatrix, named barriers,
+// register hand-over, and the host's encoding of tensor maps.
 // Written in inline PTX; nothing here allocates or launches.
 //
 // Conventions: shared-memory addresses are 32-bit (`smem_u32`); a tile
@@ -151,6 +151,24 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// make this thread's ordinary writes to shared memory visible to the async
+// proxy (a wgmma that reads them as an operand); a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j..8j+7
+// give the addresses of the 16-byte rows of matrix j, and r[j] receives,
+// in lane l, the elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of
+// matrix j (row, column of the stored matrix) as a bf16 pair, low half
+// first: matrix j's transpose in the A-fragment layout of a wgmma
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // keep the compiler from moving reads or writes of an accumulator across a
 // wgmma that is still in flight
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
@@ -188,6 +206,21 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da,
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
       ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : HOPPER_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same with B MN-major (transposed: its 64 columns are contiguous, as
+// a [K][64] tile with the 128-byte swizzle holds them)
+__device__ __forceinline__ void wgmma_ss_64x64_tb(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 1;\n"
       "}\n"
       : HOPPER_D32
       : "l"(da), "l"(db), "r"(accumulate));

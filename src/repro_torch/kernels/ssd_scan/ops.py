@@ -11,6 +11,12 @@ included (the reference wrapper sends that case to its oracle), and runs
 the plain version (`ref.ssd_reference`) on CPU tensors; the backward
 recomputes through the plain version and differentiates it, as the
 reference's custom_vjp does (`ops.py:30-38`).
+
+The kernel has two hand-written paths, and `scan_plan` picks one from the
+shapes and the dtype: bf16 with P and N multiples of 16 takes the
+chunk-parallel tensor-core path (every main path), everything else the
+FMA path (f32, which must stay exact to 2e-5, and bf16 with P or N such
+as 8).
 """
 from __future__ import annotations
 
@@ -24,17 +30,70 @@ import torch
 from repro_torch.kernels.build import load_cuda_library
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
-SOURCES = (Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu",)
+_KERNELS = Path(__file__).resolve().parents[1]
+SOURCES = (_KERNELS / "ssd_scan" / "csrc" / "ssd_scan.cu",)
+HEADERS = (_KERNELS / "common" / "csrc" / "hopper.cuh",)
 MAX_DIM = 128  # kMaxPN in the source: P and N up to this
+TC_CHUNK = 128  # kTc in the source: positions per block of the tensor-core path
+FMA_TILE = 64  # kT in the source: positions per step of the FMA path
+SMEM_LIMIT = 232448  # shared memory one block may use on an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# per (device, stream): the tensor-core path's int32 tickets and flags, two
+# per (batch row, head group); zeroed once, and every launch leaves them at
+# zero
+_COUNTERS = {}
+
+
+def scan_plan(B: int, L: int, H: int, P: int, N: int, dtype) -> dict:
+    """The launch of [B, L, H, P] inputs with state size N in `dtype`: the
+    path ("tc" or "fma"), positions per block T, heads per block G, the
+    grid, the dynamic shared memory in bytes (the source's TcCfg::kSmem,
+    or smem_floats * 4 for the FMA path), and the tensor-core path's
+    scratch: the chunk chain's f32 ring of states and its int32 counters. The tensor-core path takes G, the
+    largest of 4, 2, 1 that divides H and keeps the S_c accumulators within
+    64 registers a thread (G * ceil(P / 64) * ceil(N / 64) <= 4). Raises on
+    what neither path takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"ssd_scan: no kernel for dtype {dtype}")
+    if min(B, L, H, P, N) < 1:
+        raise ValueError(f"ssd_scan: empty shape B={B} L={L} H={H} P={P} N={N}")
+    if P > MAX_DIM or N > MAX_DIM:
+        raise ValueError(f"ssd_scan: kernel takes P, N <= {MAX_DIM}; got "
+                         f"P={P}, N={N}")
+    if dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0:
+        pb, nb = -(-P // 64), -(-N // 64)
+        G = next(g for g in (4, 2, 1) if H % g == 0 and g * pb * nb <= 4)
+        T = TC_CHUNK
+        chunks = -(-L // T)
+        smem = (2 * T * nb * 64 * 2          # C and B tiles
+                + G * T * pb * 64 * 2        # x tiles
+                + 2 * G * pb * nb * 64 * 64 * 2  # h_in's high and low halves
+                + 4 * G * T * 4              # dt, cs, w, exp(cs) per head
+                + 24 + 8 * (1 + G) + 1024)   # exp(cs_T), ticket, barriers, slack
+        return {"path": "tc", "T": T, "G": G, "chunks": chunks,
+                "grid": (B * (H // G) * chunks,), "smem_bytes": smem,
+                "ring": (B, H, 2, pb * nb * 64 * 64),
+                "counters": (2 * B * (H // G),)}
+    T = FMA_TILE
+    smem = 4 * (2 * T * (N + 1) + T * (P + 1) + T * (T + 1) + P * (N + 1) + 3 * T)
+    return {"path": "fma", "T": T, "G": 1, "chunks": -(-L // T), "grid": (H, B),
+            "smem_bytes": smem, "ring": None, "counters": None}
+
+
+def _counters(device, stream, n: int) -> torch.Tensor:
+    key = (device, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = load_cuda_library("ssd_scan", SOURCES)
+    lib = load_cuda_library("ssd_scan", SOURCES, HEADERS)
     fn = lib.repro_ssd_scan
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
     fn.restype = I
     lib.repro_ssd_scan_error_string.argtypes = [I]
     lib.repro_ssd_scan_error_string.restype = ctypes.c_char_p
@@ -62,29 +121,39 @@ def _check(x, dt, A, Bm, Cm, h0):
         raise ValueError(f"ssd_scan: mismatched shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(Bm.shape)}, C {tuple(Cm.shape)}")
-    if P > MAX_DIM or N > MAX_DIM:
-        raise ValueError(f"ssd_scan: kernel takes P, N <= {MAX_DIM}; got "
-                         f"P={P}, N={N}")
+    plan = scan_plan(B, L, H, P, N, x.dtype)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssd_scan: inputs must be contiguous")
+    if plan["path"] == "tc" and any(t.data_ptr() % 16 for t in (x, Bm, Cm)):
+        raise ValueError("ssd_scan: the tensor-core path loads x, Bm and Cm "
+                         "with TMA, which needs 16-byte aligned bases")
+    return plan
 
 
 def _launch(x, dt, A, Bm, Cm, h0):
-    _check(x, dt, A, Bm, Cm, h0)
+    plan = _check(x, dt, A, Bm, Cm, h0)
     B, L, H, P = x.shape
     N = Bm.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = plan["path"] == "tc"
+    ring = counters = None
+    if tc:  # the chunk chain's hand-off states and its tickets and flags
+        ring = torch.empty(plan["ring"], dtype=torch.float32, device=x.device)
+        counters = _counters(x.device, stream, plan["counters"][0])
     lib = _lib()
     rc = lib.repro_ssd_scan(
-        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, L, H, P, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPES[x.dtype], int(tc), plan["G"], x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if ring is None else ring.data_ptr(),
+        None if counters is None else counters.data_ptr(), B, L, H, P, N, stream)
     if rc != 0:
         msg = lib.repro_ssd_scan_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan kernel launch failed: {msg} ({rc})")
     ssd_scan.launches += 1
+    ssd_scan.launches_tc += int(tc)
     return y, state
 
 
@@ -127,5 +196,7 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128,
 
 
 # kernel launches (the plain CPU path is not counted): a run reads it to
-# show that its Mamba2 layers went through the kernel
+# show that its Mamba2 layers went through the kernel; launches_tc counts
+# those of them that took the tensor-core path
 ssd_scan.launches = 0
+ssd_scan.launches_tc = 0

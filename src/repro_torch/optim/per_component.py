@@ -13,8 +13,8 @@ axis, so a per-client rate is a multiplier along that axis.
 wrapper (`update`: base deltas × multipliers) and the port's fused,
 in-place `apply_`, which is the mtsl round's apply step. `apply_` computes
 the reference's `p + (u·c)·part` up to one rounding through K1
-(`kernels.mtsl_update`), one launch per leaf, with one step size per row
-of the leaf viewed as `[R, -1]`:
+(`kernels.mtsl_update.mtsl_update_multi_`), one launch per round over the
+whole tree, with one step size per row of each leaf viewed as `[R, -1]`:
 
   * base SGD: the raw gradient with η = lr·c·part (the delta is never
     formed);
@@ -33,7 +33,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+from repro_torch.kernels.mtsl_update.ops import mtsl_update_multi_
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path, tree_map_with_path
 
@@ -115,8 +115,9 @@ def per_component_lr(base: Optimizer,
         clr = component_lr
         eta_tower = _eta(None if clr is None else clr.clients, participation)
         eta_server = _eta(None if clr is None else clr.server, None)
-        for (path, p), d in zip(tree_leaves_with_path(params), tree_leaves(deltas)):
-            mtsl_update_(p, d, eta_tower if is_client(path) else eta_server)
+        paths, ps = zip(*tree_leaves_with_path(params))
+        mtsl_update_multi_(ps, tree_leaves(deltas),
+                           [eta_tower if is_client(k) else eta_server for k in paths])
         return state
 
     return ComponentOptimizer(init, update, apply_)

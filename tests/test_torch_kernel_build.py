@@ -8,6 +8,7 @@ from pathlib import Path
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as k2_ops
 from repro_torch.kernels.flash_decode import ops as k4_ops
+from repro_torch.kernels.ssd_scan import ops as k3_ops
 
 
 def _files(tmp_path: Path, header: bytes):
@@ -41,7 +42,9 @@ def test_library_path_changes_with_source_and_flags(tmp_path, monkeypatch):
 
 
 def test_attention_kernels_name_their_shared_header():
-    for ops in (k2_ops, k4_ops):
+    """K2, K4 and K3 include hopper.cuh and name it, so an edit to it
+    rebuilds each of them."""
+    for ops in (k2_ops, k4_ops, k3_ops):
         assert all(p.is_file() for p in (*ops.SOURCES, *ops.HEADERS))
         assert any(p.name == "hopper.cuh" for p in ops.HEADERS)
         for src in ops.SOURCES:

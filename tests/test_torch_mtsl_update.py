@@ -8,9 +8,12 @@ reference's own cases (tests/test_kernels.py): the shapes and dtypes at
 and eta in [0, 10] at 1e-6 + 1e-6 |ref| (XLA may contract the update into
 an FMA; the port rounds the product first, as its CUDA kernel does).
 Per-row step sizes are checked against a loop of the reference over rows,
-and the wrapper must update p in its own storage. The CUDA kernel itself is
-compared with the plain version on the card in
-tests/test_torch_mtsl_update_cuda.py.
+and the wrapper must update p in its own storage. The multi-tensor call
+(`mtsl_update_multi_`, one launch per round on the card) must equal the
+per-leaf loop bit for bit on whole trees, and its leaf table (the rows the
+kernel walks) must carry each leaf's size, row length, first piece, dtype
+code and vector flag. The CUDA kernels themselves are compared with the
+plain version on the card in tests/test_torch_mtsl_update_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +23,8 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels.mtsl_update.ops import mtsl_update as jax_mtsl_update
 from repro.kernels.mtsl_update.ref import mtsl_update_reference as jax_reference
-from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+from repro_torch.kernels.mtsl_update import ops as k1
+from repro_torch.kernels.mtsl_update.ops import leaf_table, mtsl_update_, mtsl_update_multi_
 from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
 from repro_torch.utils.tree import tree_leaves
 
@@ -134,3 +138,95 @@ def test_fused_apply_matches_the_unfused_composition(opt_name):
     for a, b in zip(tree_leaves(fused), tree_leaves(plain)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
     assert torch.equal(fused["towers"]["w"][1], tree(1)["towers"]["w"][1])  # frozen
+
+
+def _tree_case(arch, seed=0):
+    """(leaves, grads, etas) of `arch`'s smoke tree: tower leaves [M, ...]
+    take one step size per client (one of them 0, a frozen client), server
+    leaves one; a bf16 leaf and an odd-sized one are appended."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mtsl import init_state
+    from repro_torch.core.split import is_client_path
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    cfg = get_config(arch, smoke=True)
+    M = cfg.num_clients
+    rng = np.random.default_rng(seed)
+    tree = init_state(build_model(cfg), torch.Generator().manual_seed(seed), M)
+    eta_t = torch.tensor(rng.uniform(0, 10, size=M), dtype=torch.float32)
+    eta_t[0] = 0.0
+    eta_s = torch.tensor([rng.uniform(0, 10)], dtype=torch.float32)
+    ps, etas = [], []
+    for path, x in tree_leaves_with_path(tree):
+        ps.append(x.detach().clone())
+        etas.append(eta_t if is_client_path(path) else eta_s)
+    ps += [torch.tensor(rng.normal(size=(M, 7, 3)), dtype=torch.bfloat16),
+           torch.tensor(rng.normal(size=(2003,)), dtype=torch.float32)]
+    etas += [eta_t, eta_s]
+    gs = [torch.tensor(rng.normal(size=p.shape), dtype=p.dtype) for p in ps]
+    return ps, gs, etas
+
+
+@pytest.mark.parametrize("arch", ["paper-resnet16", "paper-mlp"])
+def test_multi_update_equals_the_per_leaf_loop(arch):
+    ps, gs, etas = _tree_case(arch)
+    rows = {e.numel() for e in etas}
+    assert len(rows) == 2 and 1 in rows  # R = M and R = 1 both present
+    assert any(p.dtype == torch.bfloat16 for p in ps)
+    loop = [mtsl_update_(p.clone(), g, e) for p, g, e in zip(ps, gs, etas)]
+    multi = [p.clone() for p in ps]
+    ptrs = [p.data_ptr() for p in multi]
+    n, leaves = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
+    out = mtsl_update_multi_(multi, gs, etas)
+    assert out is multi and [p.data_ptr() for p in multi] == ptrs  # in place
+    assert all(torch.equal(a, b) for a, b in zip(multi, loop))
+    # the plain CPU path is not counted
+    assert (mtsl_update_multi_.launches, mtsl_update_multi_.leaves) == (n, leaves)
+
+
+def test_leaf_table_rows():
+    """Offsets, row lengths and dtype codes of the rows the kernel walks:
+    an empty leaf has no row, pieces are whole multiples of PIECE, and the
+    vector path is off where a row is not a whole number of 16-byte
+    vectors or a base is not 16-byte aligned."""
+    bf16 = torch.bfloat16
+    ps = [torch.zeros(10, 3, 3, 32, 32), torch.zeros(0), torch.zeros(k1.PIECE + 1),
+          torch.zeros(4, 6, dtype=bf16), torch.zeros(3, 7), torch.zeros(4097)[1:],
+          torch.zeros(5, 6)]
+    gs = [torch.zeros_like(p) for p in ps]
+    etas = [torch.ones(10), torch.ones(1), torch.ones(1), torch.ones(4), torch.ones(3),
+            torch.ones(1), torch.ones(5)]
+    table, pieces = leaf_table(ps, gs, etas)
+    col = {name: table[:, i].tolist() for i, name in enumerate(k1.TABLE_COLUMNS)}
+    kept = [0, 2, 3, 4, 5, 6]  # the empty leaf has no row
+    assert table.shape == (6, len(k1.TABLE_COLUMNS))
+    assert col["p"] == [ps[i].data_ptr() for i in kept]
+    assert col["g"] == [gs[i].data_ptr() for i in kept]
+    assert col["eta"] == [etas[i].data_ptr() for i in kept]
+    assert col["n"] == [92160, k1.PIECE + 1, 24, 21, 4096, 30]
+    assert col["row_len"] == [9216, k1.PIECE + 1, 6, 7, 4096, 6]
+    # 92160 elements take ceil(92160 / 8192) = 12 pieces, 8193 take 2
+    assert col["piece0"] == [0, 12, 14, 15, 16, 17]
+    assert pieces == 18
+    assert col["dtype"] == [0, 0, 1, 0, 0, 0]
+    # bf16 rows of 6 and f32 rows of 7 or 6 are not whole 16-byte vectors;
+    # a view one element into its storage is not aligned
+    assert col["vector"] == [1, 1, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("bad", ["rows", "dtype", "shape", "eta_dtype", "strided"])
+def test_leaf_table_raises_on_what_the_kernel_cannot_take(bad):
+    p, g, eta = torch.zeros(6, 4), torch.zeros(6, 4), torch.ones(6)
+    if bad == "rows":
+        eta = torch.ones(5)
+    elif bad == "dtype":
+        g = g.double()
+    elif bad == "shape":
+        g = torch.zeros(24)
+    elif bad == "eta_dtype":
+        eta = eta.double()
+    elif bad == "strided":
+        p, g = p.t(), g.t()
+    with pytest.raises(ValueError):
+        leaf_table([p], [g], [eta])

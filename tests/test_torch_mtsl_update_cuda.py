@@ -12,7 +12,9 @@ leaf shape of full paper-resnet16 with M = 10 and per-client step sizes
 scalar step, odd sizes that miss the 16-byte vector path, a view whose
 pointer is not 16-byte aligned, and a permuted (strided) gradient. The
 train paths' leaves (full paper-resnet16 and paper-mlp) are read from
-each model's initial tree, as the chip smoke reads them.
+each model's initial tree, as the chip smoke reads them. The multi-tensor
+call (`mtsl_update_multi_`) must give the same bits in one launch: each
+whole tree, unaligned and odd leaves, f32 and bf16 leaves together.
 """
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.mtsl import init_state
 from repro_torch.core.split import is_client_path
-from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
 from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
 from repro_torch.models.registry import build_model
 from repro_torch.utils.tree import tree_leaves_with_path
@@ -54,11 +56,13 @@ def _inputs(shape, dtype, rows, seed=0):
 def _check(p, g, eta):
     ref = mtsl_update_reference(p, g, eta)
     n, plain = mtsl_update_.launches, mtsl_update_reference.cuda_calls
+    multi = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
     ptr = p.data_ptr()
     out = mtsl_update_(p, g, eta)
     torch.cuda.synchronize()
     assert out is p and p.data_ptr() == ptr
     assert mtsl_update_.launches == n + 1
+    assert (mtsl_update_multi_.launches, mtsl_update_multi_.leaves) == multi
     assert mtsl_update_reference.cuda_calls == plain
     assert torch.equal(out, ref)
 
@@ -127,3 +131,58 @@ def test_kernel_rejects_bad_input():
         mtsl_update_(p, g, eta[:3])
     with pytest.raises(ValueError, match="contiguous"):
         mtsl_update_(p.t(), g.t(), eta[:1])
+
+
+def _tree(arch, dtype, seed=4):
+    """Every leaf of `arch`'s full tree with its gradient and step sizes."""
+    cases = [_inputs(pr.values[0], dtype, pr.values[1], seed=seed + i)
+             for i, pr in enumerate(_train_leaves(arch))]
+    return [list(col) for col in zip(*cases)]
+
+
+def _check_multi(ps, gs, etas):
+    refs = [mtsl_update_reference(p, g, e) for p, g, e in zip(ps, gs, etas)]
+    n, leaves = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
+    single, plain = mtsl_update_.launches, mtsl_update_reference.cuda_calls
+    ptrs = [p.data_ptr() for p in ps]
+    mtsl_update_multi_(ps, gs, etas)
+    torch.cuda.synchronize()
+    assert mtsl_update_multi_.launches == n + 1
+    # leaves updated: an empty leaf has no row in the table and is not counted
+    assert mtsl_update_multi_.leaves == leaves + sum(p.numel() > 0 for p in ps)
+    assert mtsl_update_.launches == single
+    assert mtsl_update_reference.cuda_calls == plain
+    assert [p.data_ptr() for p in ps] == ptrs
+    for p, ref in zip(ps, refs):
+        assert torch.equal(p, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["paper-resnet16", "paper-mlp"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_kernel_updates_a_whole_tree_in_one_launch(arch, dtype):
+    _need_card()
+    _check_multi(*_tree(arch, dtype))
+
+
+@pytest.mark.cuda
+def test_multi_kernel_unaligned_odd_and_mixed_leaves():
+    """Views one element into their storage, sizes that leave a scalar
+    tail or miss the vector path, rows of odd length, a leaf past one
+    piece, an empty leaf, a permuted gradient, and f32 and bf16 leaves in
+    one launch."""
+    _need_card()
+    ps, gs, etas = [], [], []
+    for i, (shape, dtype, rows) in enumerate([
+            ((4097,), "float32", 1), ((2003,), "float32", 1), ((1,), "bfloat16", 1),
+            ((3, 7), "float32", 3), ((5, 9), "bfloat16", 5), ((20001,), "bfloat16", 1),
+            ((10, 3, 3, 16, 32), "float32", 10), ((4, 8, 8), "bfloat16", 4),
+            ((2, 0), "float32", 1)]):
+        p, g, eta = _inputs(shape, dtype, rows, seed=10 + i)
+        if i == 0:
+            p, g = p[1:], g[1:]
+        ps.append(p), gs.append(g), etas.append(eta)
+    g = gs[6]
+    gs[6] = g.permute(0, 4, 3, 1, 2).contiguous().permute(0, 3, 4, 2, 1)
+    assert not gs[6].is_contiguous() and torch.equal(gs[6], g)
+    _check_multi(ps, gs, etas)

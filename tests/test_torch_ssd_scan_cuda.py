@@ -6,9 +6,14 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_ssd_scan_cuda.py
 
 Cases: the reference's SSD_CASES shapes (tests/test_kernels.py), a length
-that is not a multiple of the kernel's 64-position tile, a nonzero initial
-state, and the shapes of the LM path (zamba2-7b's server and tower,
-mamba2-130m's). Tolerances: y within 2e-5 in f32 and 5e-2 in bf16, the
+that is not a multiple of the FMA path's 64-position tile, a nonzero
+initial state, the shapes of the LM path (zamba2-7b's server and tower,
+mamba2-130m's), and the tensor-core path (bf16, P and N multiples of 16)
+with an initial state, at N = 128, at P = 128, with P and N below one
+64-column block, with a ragged last chunk and with an odd head count (one
+head per block). Each launch is counted by path (`ssd_scan.launches_tc`
+for the tensor-core path, as `scan_plan` picks it), and a repeat launch
+must be bit-equal. Tolerances: y within 2e-5 in f32 and 5e-2 in bf16, the
 final state within 1e-4 (relative to its largest entry at the full-width
 shapes, where the state sums thousands of terms).
 """
@@ -16,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import scan_plan, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
 CASES = [
@@ -31,7 +36,16 @@ CASES = [
     (2, 2048, 112, 64, 64, 128, "bfloat16", False),  # zamba2-7b server
     (1, 2048, 112, 64, 64, 128, "bfloat16", False),  # zamba2-7b tower
     (16, 256, 24, 64, 128, 128, "bfloat16", False),  # mamba2-130m
+    # the tensor-core path off the main shapes
+    (2, 512, 8, 64, 64, 128, "bfloat16", True),    # initial state
+    (2, 256, 4, 64, 128, 128, "bfloat16", True),   # N = 128, initial state
+    (1, 384, 4, 128, 64, 128, "bfloat16", True),   # P = 128
+    (1, 256, 2, 128, 128, 128, "bfloat16", False),  # P = N = 128
+    (2, 192, 4, 32, 16, 64, "bfloat16", False),    # padded blocks, ragged chunk
+    (1, 256, 3, 48, 80, 128, "bfloat16", True),    # odd H: one head a block
 ]
+# the main paths' shapes (zamba2-7b server and tower, mamba2-130m)
+MAIN = CASES[7:10]
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
 
@@ -59,10 +73,12 @@ def test_cuda_kernel_matches_plain(case):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     chunk, dtype = case[5], case[6]
     x, dtv, A, Bm, Cm, h0 = _inputs(case)
-    n, plain = ssd_scan.launches, ssd_reference.cuda_calls
+    n, n_tc, plain = ssd_scan.launches, ssd_scan.launches_tc, ssd_reference.cuda_calls
     y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
     assert ssd_scan.launches == n + 1
+    tc = scan_plan(*x.shape, Bm.shape[-1], x.dtype)["path"] == "tc"
+    assert ssd_scan.launches_tc == n_tc + int(tc)
     assert ssd_reference.cuda_calls == plain
     yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
     assert y.dtype == x.dtype and st.dtype == torch.float32
@@ -81,3 +97,28 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="P, N"):
         big = torch.zeros(1, 64, 1, 256, device="cuda")
         ssd_scan(big, dtv[..., :1].contiguous(), A[:1], Bm, Cm, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MAIN)
+def test_cuda_main_path_shapes_take_the_tensor_core_path(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, dtv, A, Bm, Cm, h0 = _inputs(case)
+    n, n_tc = ssd_scan.launches, ssd_scan.launches_tc
+    ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
+    assert ssd_scan.launches == n + 1 and ssd_scan.launches_tc == n_tc + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CASES[7], CASES[9], CASES[10], CASES[6]])
+def test_cuda_repeat_launch_is_bit_equal(case):
+    """Every sum runs in a fixed order (the chunk chain too), so two
+    launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, dtv, A, Bm, Cm, h0 = _inputs(case, seed=5)
+    y1, s1 = ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
+    y2, s2 = ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
