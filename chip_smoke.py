@@ -27,7 +27,11 @@ Phases, each of which must pass (any failure exits non-zero):
           in f32 and bf16 (scalar step), and an odd 2003-element leaf (the
           scalar tail), each through the per-leaf call; then each whole
           tree through the multi-tensor call (mtsl_update_multi_, one
-          launch), as the train path updates it. Each must be bit-equal.
+          launch), as the train path updates it, and a table whose step
+          sizes are partly 0 (the baselines' straggler hold: every leaf of
+          full paper-resnet16 as per-client copies with held clients, a
+          per-cluster leaf with an idle cluster, a shared leaf at 0), whose
+          held rows must come back bit-unchanged. Each must be bit-equal.
           Times the kernel, the plain version and one PyTorch call of the
           same function (`add_` / `addcmul_`, `_foreach_addcmul_` for a
           tree; a yardstick only), each behind an L2 flush; the bound is
@@ -131,6 +135,52 @@ Phases, each of which must pass (any failure exits non-zero):
           torch.use_deterministic_algorithms(True, warn_only=True): bit-equal
           parameters (the ops that have no deterministic algorithm are
           reported).
+  baselines  the paper's six federated baselines (fedavg, fedprox,
+          splitfed, smofi, parallelsfl, fedem) on full paper-resnet16, M =
+          10, b = 8, lr 0.1, local_steps 30, 15 rounds (450 gradient steps,
+          the reference's Table 2 setting for the baselines on resnet,
+          benchmarks/table2_accuracy.py), each through train/loop.py::train
+          and the registry. Checks finite logged losses and that every
+          local SGD step went through K1 in one launch: multi-tensor
+          launches == local steps x rounds, leaves updated == 17 x that, no
+          per-leaf launch and the plain update run 0 times on the card.
+          Reports per algorithm s per round, gradient steps per s, peak
+          memory, the host's time inside K1's wrapper (the leaf table's
+          build and copy), acc_mtl on the held-out batch, and round_bytes
+          on star(10) beside mtsl's. After fedavg's run and its eval, one
+          more fedavg round under torch.profiler with K1's wrapper marked:
+          the round's device busy share and what the host does inside the
+          wrapper (CPU operations and CUDA runtime calls, by name).
+  bparity  card against CPU for the baselines. Full paper-resnet16, M =
+          10, b = 8, TF32 off, participation 0.5 with stragglers,
+          local_steps 2, lr 0.01, 3 rounds of each of the six from one
+          initial state and the same batches: losses within 1e-5 relative,
+          every parameter leaf (and FedEM's responsibilities) within 1e-4,
+          ParallelSFL's cluster map equal, SMoFi's momentum buffer (a sum
+          of raw gradients) within GRAD_GAP_F32 of its scale, as tparity
+          holds gradients, and K1 once a local step on the card; before
+          them, round 1's per-client full-model gradients card vs CPU in
+          f64 (within GRAD_GAP_F64) and f32 (within GRAD_GAP_F32). SMoFi's
+          rounds run again in f64 on both sides (a plain f64 update in
+          K1's place, which takes f32 and bf16 only): every leaf, smom
+          included, within GRAD_GAP_F64 of its scale, the witness that the
+          card's buffer is the CPU's function; reported beside it, each
+          side's f32 state against its own f64 one and the ReLU inputs of
+          round 3's first step that f32 rounds to the other side of 0. Then
+          splitfed and fedavg on the smoke zamba2-7b and mamba2-130m in f32
+          (K2, K3, K1), 3 masked rounds of 2 local steps at lr 0.05, with
+          the same tolerances and K2 / K3 launches as counted. Then two
+          seeded 10-round fedavg card runs under
+          torch.use_deterministic_algorithms(True): bit-equal parameters.
+  lm-baselines  splitfed and fedavg on mamba2-130m's full config: M = 4,
+          b = 4, S = 256, SGD lr 0.05, local_steps 2, 10 rounds on the
+          4096-token MultiTaskLMSource, through train/loop.py::train.
+          Checks a finite loss every round, K3 launches per round as counted
+          from the layers, clients, local steps and remat, every K3 launch
+          on the tensor-core path, no plain K3 forward on the card, and K1
+          launches == local steps x rounds. Reports s per round, peak
+          memory and the losses. (fedavg on zamba2-7b at full width needs
+          M full copies of 7.26 B f32 parameters: it does not fit 80 GB.)
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -215,6 +265,14 @@ TRAIN_RUNS = [  # (arch, batch per client, K1 leaves per round)
 ]
 ROUNDS = 200
 LOG_EVERY = 20  # the launcher's history cadence (TrainConfig's default)
+BASELINES = ("fedavg", "fedprox", "splitfed", "smofi", "parallelsfl", "fedem")
+# the reference's Table 2 setting for the baselines on resnet
+# (benchmarks/table2_accuracy.py): lr 0.1, 30 local steps, 450 gradient
+# steps, 8 samples per client and step
+BASELINE_RUN = {"arch": "paper-resnet16", "b": 8, "lr": 0.1, "local_steps": 30,
+                "rounds": 15, "k1_leaves": 17}
+LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 10,
+                "lr": 0.05, "local_steps": 2, "data_vocab": 4096}
 # round-1 gradients, card against CPU, max |a - b| / max |b| of the worst
 # leaf, set from the readings on an H100 (PERF.md): f64, the witness that
 # both compute one function (read: 8.3e-16), and f32 (read: 9.8e-4, twice
@@ -224,6 +282,18 @@ LOG_EVERY = 20  # the launcher's history cadence (TrainConfig's default)
 # gradient terms
 GRAD_GAP_F64 = 1e-12
 GRAD_GAP_F32 = 2e-3
+# state leaves that hold raw gradient sums, not parameters: SMoFi's fused
+# momentum buffer (v <- 0.9 v + mean g, no step size). bparity holds them
+# as gradients (GRAD_GAP_F32 of the leaf's scale), the parameters within
+# 1e-4: the same ReLU flips (two server and tower inputs within 6.7e-7 of
+# 0 at SMoFi's third round, full paper-resnet16, seed 3, on a CPU:
+# tests/torch_baseline_drift.py flips) move whole gradient terms, which a
+# parameter takes times lr 0.01 but the buffer takes whole (read on an
+# H100: 1.96e-4 absolute, 1.2e-3 of the leaf's scale, in
+# smom/stage2/b0/conv1/w). The f64 witness shows the card computes the
+# CPU's buffer (read: 9.4e-16 of its scale) and that f32 itself puts
+# that leaf 1.2e-3 of its scale from f64 on each side
+GRADIENT_SUM_LEAVES = ("smom/",)
 
 
 def _fail(msg: str) -> int:
@@ -535,8 +605,55 @@ def k1_phase(torch, dev):
               flush=True)
     for arch, _, _ in TRAIN_RUNS:
         rows_out.append(_k1_tree_case(torch, dev, gen, flush, arch))
+    rows_out.append(_k1_hold_case(torch, dev, gen))
     del flush
     return rows_out
+
+
+def _k1_hold_case(torch, dev, gen):
+    """One multi-tensor launch whose step sizes are partly 0, as a baseline's
+    local step makes it: every leaf of full paper-resnet16 as per-client
+    copies [M, ...] with a straggler mask over the clients, a per-cluster
+    leaf [2, ...] with an idle cluster, and a shared leaf on a step with no
+    active client. Held rows must come back bit-unchanged, the rest equal
+    to the plain version's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.federation import init_fedavg_params
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_multi_
+    from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config("paper-resnet16")
+    M = cfg.num_clients
+    tree = init_fedavg_params(build_model(cfg), torch.Generator().manual_seed(0), M)
+    live = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 1], dtype=torch.float32, device=dev)
+    shapes = [(tuple(x.shape), 0.1 * live) for x in tree_leaves(tree)]
+    shapes += [((2, 3, 3, 32, 64), torch.tensor([0.0, 0.1], device=dev)),
+               ((64, 10), torch.zeros(1, device=dev))]
+    ps = [torch.randn(shape, generator=gen, device=dev) for shape, _ in shapes]
+    gs = [torch.randn(shape, generator=gen, device=dev) for shape, _ in shapes]
+    etas = [eta for _, eta in shapes]
+    before = [p.clone() for p in ps]
+    refs = [mtsl_update_reference(p, g, e) for p, g, e in zip(ps, gs, etas)]
+    n0 = mtsl_update_multi_.launches
+    mtsl_update_multi_(ps, gs, etas)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(ps, refs))
+    held = sum(int((e == 0).sum()) for e in etas)
+    for p, b, r, e in zip(ps, before, refs, etas):
+        rows = e.numel()
+        if not (torch.equal(p, r) and torch.equal(p.view(rows, -1)[e == 0],
+                                                  b.view(rows, -1)[e == 0])):
+            raise AssertionError("K1 hold: a held row moved, or kernel != plain")
+    if mtsl_update_multi_.launches != n0 + 1:
+        raise AssertionError("K1 hold: not one launch")
+    row = {"case": "hold:paper-resnet16", "leaves": len(ps),
+           "numel": sum(p.numel() for p in ps), "held_rows": held,
+           "max_abs_err": err, "bit_equal": True, "held_rows_unchanged": True}
+    print(f"  K1 hold ({len(ps)} leaves, {held} rows at step 0) one launch: "
+          f"bit-equal, held rows unchanged", flush=True)
+    return row
 
 
 def _k1_tree_case(torch, dev, gen, flush, arch):
@@ -764,8 +881,9 @@ def _parity_setup(rounds: int):
     return model, M, init.params, list(zip(batches, scheds))
 
 
-def _relu_flips(torch, model, towers, image, truth=None):
-    """The towers' ReLU inputs under vmap, as f64 on the CPU; with `truth`
+def _relu_flips(torch, model, towers, image, truth=None, server=None):
+    """The towers' ReLU inputs under vmap (with `server`, a server shared by
+    every client, the server's after them), as f64 on the CPU; with `truth`
     (the same from an f64 run), per ReLU call that has any, the count of
     inputs whose sign differs from truth's and the largest |truth| among
     them."""
@@ -781,7 +899,9 @@ def _relu_flips(torch, model, towers, image, truth=None):
         mode = Record()
         mode.seen = []
         with mode:
-            model.tower_forward(tp, {"image": x})
+            h = model.tower_forward(tp, {"image": x})
+            if server is not None:
+                model.server_forward(server, h)
         return mode.seen
 
     acts = [a.detach().cpu().double() for a in torch.func.vmap(fwd)(towers, image)]
@@ -803,7 +923,7 @@ def gradient_gap_phase(torch, dev):
     rounding (~1e-12 at most). Also counts the tower ReLU inputs whose
     sign in f32 differs from f64's on each side: such a flip moves whole
     gradient terms, far above f32 rounding."""
-    from repro_torch.core.algorithms import schedule_tensors
+    from repro_torch.core.schedule import schedule_tensors
     from repro_torch.core.mtsl import TrainState, build_train_phases
     from repro_torch.optim import sgd
     from repro_torch.train.loop import stage_batch
@@ -817,7 +937,7 @@ def gradient_gap_phase(torch, dev):
             params = tree_map(lambda x: x.detach().to(where, dt).requires_grad_(), init)
             staged = {k: v.to(dt) if v.is_floating_point() else v
                       for k, v in stage_batch(batch, where).items()}
-            mask, sizes = schedule_tensors(sched, where)
+            mask, _, sizes = schedule_tensors(sched, where)
             g, _ = local_step(TrainState(params, (), 0), staged, mask, sizes)
             grads[where, dt] = {k: v.detach().cpu().double()
                                 for k, v in tree_leaves_with_path(g)}
@@ -1104,22 +1224,25 @@ def k3_phase(torch, dev):
 
 
 def _lm_counts(torch):
-    """The LM path's counters, by name: (object, attribute). K2's and K3's
-    launches (K3's tensor-core ones apart) and plain forwards on CUDA
-    tensors; K1's multi-tensor launches, the leaves they updated, and its
-    per-leaf launches."""
+    """The training paths' counters, by name: (object, attribute). K2's and
+    K3's launches (K3's tensor-core ones apart) and plain forwards on CUDA
+    tensors; K1's multi-tensor launches, the leaves they updated, its
+    per-leaf launches and its plain update on CUDA tensors."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import mha_reference
     from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
+    from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
+
     return {"k2": (flash_attention, "launches"), "k3": (ssd_scan, "launches"),
             "k3_tc": (ssd_scan, "launches_tc"), "k1": (mtsl_update_multi_, "launches"),
             "k1_leaves": (mtsl_update_multi_, "leaves"),
             "k1_single": (mtsl_update_, "launches"),
             "k2_plain": (mha_reference, "cuda_calls"),
-            "k3_plain": (ssd_reference, "cuda_calls")}
+            "k3_plain": (ssd_reference, "cuda_calls"),
+            "k1_plain": (mtsl_update_reference, "cuda_calls")}
 
 
 def _reset_counts(torch):
@@ -1131,23 +1254,27 @@ def _read_counts(torch):
     return {name: getattr(obj, attr) for name, (obj, attr) in _lm_counts(torch).items()}
 
 
-def _lm_launches_per_round(cfg, M: int, microbatches: int = 1) -> dict:
-    """K2 and K3 launches one mtsl round makes: each shared_attn layer runs
-    one attention and one Mamba2 scan, each mamba layer one scan; the
-    towers run once per client; under remat every unit's forward runs again
-    in the backward."""
+def _lm_launches_per_round(cfg, M: int, microbatches: int = 1,
+                           local_steps: int = 1, full_models: bool = False) -> dict:
+    """K2 and K3 launches one round makes: each shared_attn layer runs one
+    attention and one Mamba2 scan, each mamba layer one scan; the towers
+    run once per client and local step, the server once per step (mtsl,
+    splitfed: the clients' smashed data folds into one batch) or once per
+    client and step (`full_models`: fedavg's per-client full models); under
+    remat every unit's forward runs again in the backward."""
     kinds = cfg.layer_kinds
     tower, server = kinds[:cfg.split_layers], kinds[cfg.split_layers:]
     remat = 1 if cfg.remat == "none" else 2
-    n = remat * microbatches
+    n = remat * microbatches * local_steps
+    servers = M if full_models else 1
 
     def count(ks, *names):
         return sum(k in names for k in ks)
 
     return {"k2": n * (M * count(tower, "shared_attn", "full", "swa")
-                       + count(server, "shared_attn", "full", "swa")),
+                       + servers * count(server, "shared_attn", "full", "swa")),
             "k3": n * (M * count(tower, "mamba", "shared_attn")
-                       + count(server, "mamba", "shared_attn"))}
+                       + servers * count(server, "mamba", "shared_attn"))}
 
 
 _KERNEL_KINDS = (  # (kind, substrings of the kernel's name), first match wins
@@ -1456,8 +1583,523 @@ def lm_parity_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the six federated baselines
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _k1_host_time(acc):
+    """Adds to acc[0] the host's seconds inside K1's multi-tensor wrapper as
+    the baselines call it (the leaf table's build, its copy, the launch)."""
+    from repro_torch.core import federation
+
+    real = federation.mtsl_update_multi_
+
+    def timed(ps, gs, etas):
+        t0 = time.perf_counter()
+        try:
+            return real(ps, gs, etas)
+        finally:
+            acc[0] += time.perf_counter() - t0
+
+    federation.mtsl_update_multi_ = timed
+    try:
+        yield
+    finally:
+        federation.mtsl_update_multi_ = real
+
+
+def _k1_wrapper_profile(torch, rf, state, batch, sched):
+    """One round under torch.profiler with K1's wrapper, as the baselines
+    call it, marked: the round's wall and device time, the host's time
+    inside the wrapper, and the CPU operations and CUDA runtime calls that
+    ran inside it, each with its calls and summed inclusive ms, the widest
+    first (the profiler's own cost is in every number)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import federation
+
+    real = federation.mtsl_update_multi_
+
+    def marked(ps, gs, etas):
+        with record_function("k1_wrapper"):
+            return real(ps, gs, etas)
+
+    torch.cuda.synchronize()
+    federation.mtsl_update_multi_ = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = rf(state, batch, sched)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        federation.mtsl_update_multi_ = real
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
+             if e.name == "k1_wrapper" and e.device_type == cpu]  # not its GPU span
+    inside = {}
+    for e in events:
+        if e.device_type != cpu or e.name == "k1_wrapper":
+            continue
+        r = e.time_range
+        if any(a <= r.start and r.end <= z and e.thread == th for a, z, th in spans):
+            calls, us = inside.get(e.name, (0, 0.0))
+            inside[e.name] = (calls + 1, us + r.elapsed_us())
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return state, {
+        "wall_ms": wall_ms, "device_ms": device_us / 1e3,
+        "device_busy_share": device_us / 1e3 / wall_ms,
+        "wrapper_calls": len(spans),
+        "wrapper_ms": sum(z - a for a, z, _ in spans) / 1e3,
+        "inside_wrapper": [{"name": k[:60], "calls": c, "ms": us / 1e3}
+                           for k, (c, us) in sorted(inside.items(),
+                                                    key=lambda kv: -kv[1][1])[:14]]}
+
+
+def _state_leaves(state) -> dict:
+    """{path: tensor} of an algorithm's state (FedEM's is (components, pi))."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    if isinstance(state, tuple):
+        return {**{f"components/{k}": v for k, v in tree_leaves_with_path(state[0])},
+                "pi": state[1]}
+    return dict(tree_leaves_with_path(state))
+
+
+def _state_to(state, device):
+    from repro_torch.utils.tree import tree_map
+
+    if isinstance(state, tuple):
+        return (tree_map(lambda x: x.detach().to(device).clone(), state[0]),
+                state[1].detach().to(device).clone())
+    return tree_map(lambda x: x.detach().to(device).clone(), state)
+
+
+def baselines_phase(torch, dev):
+    """Each baseline on full paper-resnet16 through the loop and the registry
+    (see the module docstring), with the counts set to 0 just before each
+    run and read just after."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import comm_cost
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.schedule import full_schedule
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.data.synthetic import MultiTaskImageSource
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, stage_batch, train
+
+    c = BASELINE_RUN
+    cfg = get_config(c["arch"])
+    M, ls, rounds = cfg.num_clients, c["local_steps"], c["rounds"]
+    model = build_model(cfg)
+    tower_p, total_p = comm_cost.model_param_counts(model)
+    hp = HParams(lr=c["lr"], local_steps=ls)
+    held = stage_batch(_held_out_batch(cfg, M), dev)
+    out = {"arch": c["arch"], "M": M, "b": c["b"], "lr": c["lr"], "local_steps": ls,
+           "rounds": rounds, "tower_params": tower_p, "total_params": total_p,
+           "mtsl_round_bytes_star": get_algorithm("mtsl").round_bytes(
+               cfg, M, c["b"], hp, tower_params=tower_p, total_params=total_p),
+           "runs": {}}
+    for name in BASELINES:
+        alg = get_algorithm(name)
+        src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
+                                   channels=cfg.image_channels, seed=0)
+        tcfg = TrainConfig(steps=ls * rounds, algorithm=name, lr=c["lr"],
+                           local_steps=ls, log_every=1, seed=0, device=dev.type)
+        torch.cuda.reset_peak_memory_stats()
+        host = [0.0]
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        with _k1_host_time(host):
+            state, hist = train(model, sgd(c["lr"]),
+                                client_batches(src, c["b"] * ls, seed=0), tcfg, M,
+                                log=lambda _: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(torch)
+        losses = [e["loss"] for e in hist]
+        if len(hist) != rounds or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"baselines {name}: losses {losses}")
+        steps = ls * rounds
+        if not (counts["k1"] == steps and counts["k1_leaves"] == c["k1_leaves"] * steps
+                and counts["k1_single"] == counts["k1_plain"] == 0):
+            raise AssertionError(
+                f"baselines {name}: K1 counts {counts}, want {steps} launches over "
+                f"{c['k1_leaves']} leaves each, no per-leaf launch, no plain update")
+        ev = alg.eval_fn(model, M)(state, held)
+        if name == "fedavg":  # after the counts and the eval were read
+            state, prof = _k1_wrapper_profile(
+                torch, alg.round_fn(model, M, hp),
+                state, stage_batch(next(iter(client_batches(src, c["b"] * ls, seed=0))),
+                                   dev), full_schedule(M, ls))
+            out["fedavg_k1_wrapper_profile"] = prof
+            print(f"  fedavg, one round profiled: {prof}", flush=True)
+        times = [e["time"] for e in hist]
+        s_round = (times[-1] - times[0]) / (rounds - 1)
+        res = {"losses": losses, "s_per_round": s_round,
+               "first_round_s": times[0], "grad_steps_per_s": ls / s_round,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "k1_launches": counts["k1"], "k1_leaves_updated": counts["k1_leaves"],
+               "k1_host_s": host[0], "k1_host_share": host[0] / wall,
+               "acc_mtl_held_out": float(ev["acc_mtl"]),
+               "round_bytes_star": alg.round_bytes(cfg, M, c["b"], hp,
+                                                   tower_params=tower_p,
+                                                   total_params=total_p),
+               "phase_s": wall}
+        out["runs"][name] = res
+        print(f"  {name}: {s_round * 1e3:.1f} ms per round ({ls / s_round:.1f} steps/s), "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, acc_mtl "
+              f"{res['acc_mtl_held_out']:.3f}, K1 {counts['k1']} launches "
+              f"(host {res['k1_host_share']:.3f} of the wall), "
+              f"{res['round_bytes_star']} bytes per round", flush=True)
+        del state, ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def _baseline_card_vs_cpu(torch, name, model, M, hp, init, stream,
+                          want_counts=None, keep=None):
+    """Rounds of `name` on the card and on the CPU from `init` and one
+    stream of (numpy batch, schedule). Returns per round the losses and the
+    largest parameter gap, the final state's five widest leaf gaps with
+    each leaf's scale (max |CPU value|), the card's counts, and a list of
+    failures: a loss more than 1e-5 relative apart, a parameter leaf more
+    than 1e-4 apart (the cluster map at all), a gradient sum
+    (GRADIENT_SUM_LEAVES) more than GRAD_GAP_F32 of its scale apart, or the
+    card's K1 (and, with want_counts, K2 / K3) counts off. With `keep` (a
+    list), appends copies of the card's and the CPU's state after each
+    round."""
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.train.loop import stage_batch
+
+    alg = get_algorithm(name)
+    rf_cpu, rf_gpu = alg.round_fn(model, M, hp), alg.round_fn(model, M, hp)
+    cpu, gpu = _state_to(init, "cpu"), _state_to(init, "cuda")
+    per_round, gpu_counts, failures = [], {}, []
+    for r, (batch, sched) in enumerate(stream):
+        _reset_counts(torch)
+        gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
+        torch.cuda.synchronize()
+        for k, v in _read_counts(torch).items():
+            gpu_counts[k] = gpu_counts.get(k, 0) + v
+        cpu, mc = rf_cpu(cpu, stage_batch(batch, "cpu"), sched)
+        if keep is not None:
+            keep.append((_state_to(gpu, "cuda"), _state_to(cpu, "cpu")))
+        lg, lc = float(mg["loss"]), float(mc["loss"])
+        if not abs(lg - lc) <= 1e-5 * abs(lc):
+            failures.append(f"round {r + 1}: card loss {lg} vs CPU {lc}")
+        cpu_leaves = _state_leaves(cpu)
+        gaps = sorted(((a.detach().cpu().double() - cpu_leaves[k].double())
+                       .abs().max().item(), k, cpu_leaves[k].double().abs().max().item())
+                      for k, a in _state_leaves(gpu).items())[::-1]
+        params = [g for g in gaps if not g[1].startswith(GRADIENT_SUM_LEAVES)]
+        sums = [g for g in gaps if g[1].startswith(GRADIENT_SUM_LEAVES)]
+        per_round.append({
+            "card_loss": lg, "cpu_loss": lc, "participants": sched.num_participants,
+            "max_param_abs_diff": params[0][0], "worst_leaf": params[0][1],
+            **({"max_gradient_sum_rel_diff": max(g / (sc or 1.0) for g, _, sc in sums)}
+               if sums else {})})
+    rounds, ls = len(per_round), hp.local_steps
+    err, leaf = max((r["max_param_abs_diff"], r["worst_leaf"]) for r in per_round)
+    if not err <= 1e-4:
+        failures.append(f"leaves differ by {err} at {leaf}")
+    sum_rel = max(r.get("max_gradient_sum_rel_diff", 0.0) for r in per_round)
+    if not sum_rel <= GRAD_GAP_F32:
+        failures.append(f"a gradient sum differs by {sum_rel} of its scale")
+    if "cidx" in cpu_leaves and not torch.equal(_state_leaves(gpu)["cidx"].cpu(),
+                                                cpu_leaves["cidx"]):
+        failures.append("cluster maps differ")
+    want = {"k1": rounds * ls, "k1_single": 0, "k1_plain": 0,
+            "k2_plain": 0, "k3_plain": 0, **(want_counts or {})}
+    if any(gpu_counts[k] != v for k, v in want.items()):
+        failures.append(f"card counts {gpu_counts}, want {want}")
+    return {"rounds": per_round, "max_param_abs_diff": err, "worst_leaf": leaf,
+            "max_gradient_sum_rel_diff": sum_rel,
+            "widest_gaps": [{"leaf": k, "abs": g, "scale": sc, "rel": g / (sc or 1.0)}
+                            for g, k, sc in gaps[:5]],
+            "card_counts": gpu_counts, "failures": failures}
+
+
+def _baseline_gradient_gap(torch, model, init, batch, b: int):
+    """Round 1's first local step (the first `b` samples of each client's
+    row) of the per-client full models (fedavg's layout): gradients on the
+    card and on the CPU from one state and batch,
+    in f32 and in f64: per leaf max |card - CPU| / max |CPU|, the worst
+    leaf of each. The f64 pair agreeing to rounding is the witness that
+    both compute one function."""
+    from repro_torch.core.federation import _client_value_and_grad
+    from repro_torch.train.loop import stage_batch
+    from repro_torch.utils.tree import tree_leaves_with_path, tree_map
+
+    vg = _client_value_and_grad(model)
+    pcs = {"tower": init["towers"], "server": init["servers"]}
+    grads = {}
+    for where in ("cpu", "cuda"):
+        for dt in (torch.float64, torch.float32):
+            p = tree_map(lambda x: x.detach().to(where, dt), pcs)
+            mb = {k: (v.to(dt) if v.is_floating_point() else v)[:, :b].contiguous()
+                  for k, v in stage_batch(batch, where).items()}
+            _, g = vg(p, mb)
+            grads[where, dt] = {k: v.detach().cpu().double()
+                                for k, v in tree_leaves_with_path(g)}
+
+    def gap(dt):
+        return max((float((grads["cuda", dt][k] - ref).abs().max())
+                    / (float(ref.abs().max()) or 1.0), k)
+                   for k, ref in grads["cpu", dt].items())
+
+    f64, f32 = gap(torch.float64), gap(torch.float32)
+    return {"card_vs_cpu_f64": {"rel": f64[0], "leaf": f64[1]},
+            "card_vs_cpu_f32": {"rel": f32[0], "leaf": f32[1]}}
+
+
+def _plain_f64_update(ps, gs, etas):
+    """p <- p - eta·g per leaf and row in f64, uncounted: the f64 witness's
+    stand-in for K1, which takes f32 and bf16 only."""
+    for p, g, eta in zip(ps, gs, etas, strict=True):
+        R = eta.numel()
+        p.view(R, -1).sub_(eta.to(p.dtype).reshape(R, 1) * g.reshape(R, -1))
+    return ps
+
+
+def _smofi_f64_witness(torch, model, M, b, hp, init, stream, kept):
+    """SMoFi's bparity rounds again in f64, on the card and on the CPU,
+    from the same initial state and batches, each stepping through
+    `_plain_f64_update` in place of K1 (the k1 phase holds K1 bit-equal
+    to its plain version). If the card and the CPU compute one function,
+    every leaf of the two f64 states, smom included, agrees within
+    GRAD_GAP_F64 of its scale. `kept` holds the card's and the CPU's f32
+    states after each round of `_baseline_card_vs_cpu`: reports per side
+    how far the final f32 state lies from that side's f64 state, leaf by
+    leaf for smom (the f32 rounding each side adds), and the ReLU inputs
+    of round 3's first step (towers, then the shared server) whose sign
+    under the side's f32 state after round 2 differs between f32 and f64
+    arithmetic on that side."""
+    from repro_torch.core import federation
+    from repro_torch.core.algorithms import get_algorithm
+    from repro_torch.train.loop import stage_batch
+    from repro_torch.utils.tree import tree_map
+
+    f64 = torch.float64
+    alg = get_algorithm("smofi")
+    finals = {}
+    real = federation.mtsl_update_multi_
+    federation.mtsl_update_multi_ = _plain_f64_update
+    try:
+        for where in ("cuda", "cpu"):
+            rf = alg.round_fn(model, M, hp)
+            st = tree_map(lambda x: x.detach().to(where, f64).clone(), init)
+            for batch, sched in stream:
+                staged = {k: v.to(f64) if v.is_floating_point() else v
+                          for k, v in stage_batch(batch, where).items()}
+                st, _ = rf(st, staged, sched)
+            finals[where] = {k: v.detach().cpu() for k, v in _state_leaves(st).items()}
+    finally:
+        federation.mtsl_update_multi_ = real
+
+    def rel(a, b):  # max |a - b| / max |b|, per leaf
+        return {k: float((a[k].double() - ref).abs().max()) / (float(ref.abs().max()) or 1.0)
+                for k, ref in b.items()}
+
+    card64 = rel(finals["cuda"], finals["cpu"])
+    worst = max(card64, key=card64.get)
+    res = {"card_vs_cpu_f64": {"rel": card64[worst], "leaf": worst,
+                               "smom_rel": max(v for k, v in card64.items()
+                                               if k.startswith("smom/"))}}
+    for side, i, where in (("card", 0, "cuda"), ("cpu", 1, "cpu")):
+        f32 = {k: v.detach().cpu() for k, v in _state_leaves(kept[-1][i]).items()}
+        gaps = rel(f32, finals[where])
+        res[f"{side}_f32_vs_f64"] = {
+            "smom_rel": max(v for k, v in gaps.items() if k.startswith("smom/")),
+            "params_rel": max(v for k, v in gaps.items() if not k.startswith("smom/")),
+            "smom_by_leaf": {k: v for k, v in gaps.items() if k.startswith("smom/")}}
+        st = kept[1][i]
+        image = stage_batch(stream[2][0], where)["image"][:, :b]
+        with torch.no_grad():
+            truth = _relu_flips(torch, model, tree_map(lambda x: x.to(f64), st["towers"]),
+                                image.to(f64),
+                                server=tree_map(lambda x: x.to(f64), st["server"]))
+            flips = _relu_flips(torch, model, st["towers"], image, truth,
+                                server=st["server"])
+        res[f"{side}_relu_flips_f32_vs_f64"] = flips
+    return res
+
+
+def baselines_parity_phase(torch):
+    """Card against CPU for the six baselines, then seeded repeatability
+    (see the module docstring)."""
+    import itertools
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.schedule import (ScheduleConfig, capability_profile,
+                                           schedule_stream)
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.data.synthetic import MultiTaskImageSource
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.utils.device import generator
+
+    ls, rounds = 2, 3
+    out = {"classifier": {}, "lm": {}}
+    cfg = get_config("paper-resnet16")
+    M, b = cfg.num_clients, 8
+    model = build_model(cfg)
+    scfg = ScheduleConfig(participation_rate=0.5, straggler_frac=0.5, seed=3)
+    hp = HParams(lr=0.01, local_steps=ls,
+                 capability=tuple(capability_profile(M, scfg)))
+    src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
+                               channels=cfg.image_channels, seed=3)
+    batches = list(client_batches(src, b * ls, steps=rounds, seed=3))
+    scheds = list(itertools.islice(schedule_stream(scfg, M, ls), rounds))
+    failures = []
+    for name in BASELINES:
+        init = get_algorithm(name).init_state(model, generator("cpu", 3), M, hp)
+        if name == "fedavg":
+            out["round1_grad_gap"] = _baseline_gradient_gap(torch, model, init,
+                                                            batches[0], b)
+            print(f"  round-1 gradients, card vs CPU: {out['round1_grad_gap']}",
+                  flush=True)
+        kept = [] if name == "smofi" else None
+        res = _baseline_card_vs_cpu(torch, name, model, M, hp, init,
+                                    list(zip(batches, scheds)), keep=kept)
+        if name == "smofi":
+            out["smofi_f64_witness"] = wit = _smofi_f64_witness(
+                torch, model, M, b, hp, init, list(zip(batches, scheds)), kept)
+            del kept
+            print(f"  smofi f64 witness: {wit}", flush=True)
+            if not wit["card_vs_cpu_f64"]["rel"] <= GRAD_GAP_F64:
+                failures.append(f"smofi f64 state, card vs CPU: {wit['card_vs_cpu_f64']}")
+        out["classifier"][name] = res
+        failures += [f"resnet16 {name}: {f}" for f in res["failures"]]
+        print(f"  resnet16 {name}: card vs CPU within {res['max_param_abs_diff']:.3g} "
+              f"({res['worst_leaf']}); widest {res['widest_gaps'][:3]}", flush=True)
+    for arch in ("zamba2-7b", "mamba2-130m"):
+        cfg = get_config(arch, smoke=True)
+        M = cfg.num_clients
+        model = build_model(cfg)
+        hp = HParams(lr=0.05, local_steps=ls)
+        src = MultiTaskLMSource(vocab_size=cfg.vocab_size, num_clients=M, beta=0.5,
+                                seed=4)
+        batches = list(client_batches(src, 4 * ls, steps=rounds, seed=4, seq_len=64))
+        scheds = list(itertools.islice(schedule_stream(
+            ScheduleConfig(participation_rate=0.5, seed=4), M, ls), rounds))
+        for name in ("splitfed", "fedavg"):
+            init = get_algorithm(name).init_state(model, generator("cpu", 4), M, hp)
+            per = _lm_launches_per_round(cfg, M, local_steps=ls,
+                                         full_models=name == "fedavg")
+            res = _baseline_card_vs_cpu(
+                torch, name, model, M, hp, init, list(zip(batches, scheds)),
+                want_counts={k: rounds * v for k, v in per.items()})
+            out["lm"][f"{arch}/{name}"] = res
+            failures += [f"{arch} {name}: {f}" for f in res["failures"]]
+            print(f"  {arch} {name}: card vs CPU within "
+                  f"{res['max_param_abs_diff']:.3g} ({res['worst_leaf']})", flush=True)
+
+    cfg = get_config("paper-resnet16")
+    M, b = cfg.num_clients, 8
+    model = build_model(cfg)
+    src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
+                               channels=cfg.image_channels, seed=5)
+    tcfg = TrainConfig(steps=20, algorithm="fedavg", lr=0.1, local_steps=2, seed=5,
+                       schedule=ScheduleConfig(participation_rate=0.5, seed=5),
+                       device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        finals = []
+        for _ in range(2):
+            state, _ = train(model, sgd(0.1), client_batches(src, b * 2, seed=5),
+                             tcfg, M, log=lambda _: None)
+            finals.append([x.detach().clone() for x in _state_leaves(state).values()])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = all(torch.equal(a, c) for a, c in zip(*finals))
+    out["repeat"] = {"algorithm": "fedavg", "rounds": 10, "bit_equal": same}
+    if not same:
+        failures.append("two seeded 10-round fedavg card runs differ")
+    grad = out["round1_grad_gap"]
+    if not (grad["card_vs_cpu_f64"]["rel"] <= GRAD_GAP_F64
+            and grad["card_vs_cpu_f32"]["rel"] <= GRAD_GAP_F32):
+        failures.append(f"round-1 gradients, card vs CPU: {grad}")
+    if failures:
+        print("BPARITY " + json.dumps(out), flush=True)
+        raise AssertionError("bparity: " + "; ".join(failures))
+    return out
+
+
+def lm_baselines_phase(torch, dev):
+    """splitfed and fedavg on mamba2-130m's full config through the loop
+    (see the module docstring), with the counts set to 0 just before each
+    run and read just after."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, train
+
+    c = LM_BASELINES
+    cfg = get_config(c["arch"])
+    M, ls, rounds = c["M"], c["local_steps"], c["rounds"]
+    model = build_model(cfg)
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    out = {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "lr": c["lr"],
+           "local_steps": ls, "rounds": rounds, "runs": {}}
+    for name in ("splitfed", "fedavg"):
+        tcfg = TrainConfig(steps=ls * rounds, algorithm=name, lr=c["lr"],
+                           local_steps=ls, log_every=1, seed=0, device=dev.type)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        state, hist = train(model, sgd(c["lr"]),
+                            client_batches(src, c["b"] * ls, seed=0, seq_len=c["S"]),
+                            tcfg, M, log=lambda _: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(torch)
+        losses = [e["loss"] for e in hist]
+        if len(hist) != rounds or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"lm-baselines {name}: losses {losses}")
+        want = _lm_launches_per_round(cfg, M, local_steps=ls,
+                                      full_models=name == "fedavg")
+        if not (counts["k3"] == counts["k3_tc"] == want["k3"] * rounds
+                and counts["k2"] == want["k2"] * rounds
+                and counts["k2_plain"] == counts["k3_plain"] == 0
+                and counts["k1"] == ls * rounds
+                and counts["k1_single"] == counts["k1_plain"] == 0):
+            raise AssertionError(
+                f"lm-baselines {name}: counts {counts}, want per round {want} (K3 "
+                f"all on the tensor cores), K1 {ls * rounds} launches, no plain "
+                f"forward or update")
+        times = [e["time"] for e in hist]
+        res = {"losses": losses, "first_round_s": times[0],
+               "s_per_round": (times[-1] - times[0]) / (rounds - 1),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "counts": counts, "launches_per_round": want, "phase_s": wall}
+        out["runs"][name] = res
+        print(f"  {name}: {res['s_per_round']:.3f} s per round, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, peak "
+              f"{res['peak_mem_gib']:.2f} GiB, K3 {counts['k3']}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
-          "lm-train", "lm-learn", "lm-parity")
+          "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
+          "lm-baselines")
 
 
 def _phases_wanted(argv):
@@ -1584,6 +2226,28 @@ def main() -> int:
                   "repeatability", flush=True)
             report["lm_parity"] = lm_parity_phase(torch)
             print("LM_PARITY " + json.dumps(report["lm_parity"]), flush=True)
+            torch.cuda.empty_cache()
+
+        if want("baselines"):
+            print(f"[baselines] {', '.join(BASELINES)} on full "
+                  f"{BASELINE_RUN['arch']}, {BASELINE_RUN['local_steps']} local "
+                  f"steps x {BASELINE_RUN['rounds']} rounds", flush=True)
+            report["baselines"] = baselines_phase(torch, dev)
+            print("BASELINES " + json.dumps(report["baselines"]), flush=True)
+            torch.cuda.empty_cache()
+
+        if want("bparity"):
+            print("[bparity] the baselines, card == CPU; seeded repeatability",
+                  flush=True)
+            report["bparity"] = baselines_parity_phase(torch)
+            print("BPARITY " + json.dumps(report["bparity"]), flush=True)
+            torch.cuda.empty_cache()
+
+        if want("lm-baselines"):
+            print(f"[lm-baselines] splitfed and fedavg on {LM_BASELINES['arch']} "
+                  f"full config, {LM_BASELINES['rounds']} rounds", flush=True)
+            report["lm_baselines"] = lm_baselines_phase(torch, dev)
+            print("LM_BASELINES " + json.dumps(report["lm_baselines"]), flush=True)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")

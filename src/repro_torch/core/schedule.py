@@ -1,5 +1,5 @@
 """Client participation and compute heterogeneity (port of
-`repro.core.schedule`, the parts the synchronous rounds use).
+`repro.core.schedule`).
 
 A `ClientSchedule` is one round's participation mask `[M]`, per-client
 local-step budget `[M]` and, under capability-aware batch sizing, the
@@ -11,6 +11,11 @@ the `[M, b]` live-sample mask there).
 
 The default all-clients / full-budget schedule is trajectory-identical to
 a round without one (masks of ones multiply through unchanged).
+
+The masked reductions at the end (`participation_mean` and friends) are
+the round builders' federation means, on tensors: they compute the
+reference's formulas, not `torch.mean` (with an all-ones mask the two
+differ in the last bit).
 """
 from __future__ import annotations
 
@@ -59,6 +64,31 @@ def sample_mask(sizes: torch.Tensor, width: int) -> torch.Tensor:
     return (pos[None, :] < sizes[:, None]).to(torch.float32)
 
 
+def schedule_tensors(schedule: Optional[ClientSchedule], device) -> tuple:
+    """(mask [M] f32, budget [M] int, sizes [M] int or None) of a
+    ClientSchedule on `device`; (None, None, None) for no schedule."""
+    if schedule is None:
+        return None, None, None
+    mask = torch.as_tensor(np.asarray(schedule.mask, np.float32), device=device)
+    budget = torch.as_tensor(np.asarray(schedule.budget), device=device)
+    sizes = (None if schedule.sizes is None
+             else torch.as_tensor(np.asarray(schedule.sizes), device=device))
+    return mask, budget, sizes
+
+
+def schedule_sample_mask(schedule: ClientSchedule, batch,
+                         axis: int = 2) -> Optional[torch.Tensor]:
+    """The round's [M, b] live-sample mask on the batch's device, or None
+    when the schedule carries no capability batch sizes. `axis` is the
+    per-sample axis of the batch's tensors ([M, local_steps, b, ...] round
+    batches -> 2; [M, b, ...] single-step batches -> 1)."""
+    if schedule.sizes is None:
+        return None
+    first = next(iter(batch.values()))
+    sizes = torch.as_tensor(np.asarray(schedule.sizes), device=first.device)
+    return sample_mask(sizes, first.shape[axis])
+
+
 @dataclass(frozen=True)
 class ScheduleConfig:
     """Run-level participation/heterogeneity knobs.
@@ -72,6 +102,9 @@ class ScheduleConfig:
     capability_batching: give every participant the full step count but a
         per-step batch proportional to its compute speed (per-round total
         conserved); rows are generated `batch_boost` x wider as headroom.
+    sample_weighted: weight the FedAvg-family federation means by the
+        transmitted samples (`ClientSchedule.sizes`); uniform sizes, or no
+        capability batching, give the unweighted means bit for bit.
     """
 
     participation_rate: float = 1.0
@@ -80,6 +113,7 @@ class ScheduleConfig:
     min_capability: float = 0.25
     capability_batching: bool = False
     batch_boost: float = 2.0
+    sample_weighted: bool = False
 
     @property
     def is_trivial(self) -> bool:
@@ -99,12 +133,20 @@ def full_schedule(num_clients: int, local_steps: int) -> ClientSchedule:
     )
 
 
-def capability_profile(num_clients: int, scfg: ScheduleConfig) -> np.ndarray:
-    """[M] relative compute speeds in (0, 1], fixed for the run:
-    `straggler_frac` of the clients (chosen by `scfg.seed`) are slow and
-    draw a capability uniform in [min_capability, 1); the rest run at 1.0.
-    (The reference also takes the profile from a topology; topologies are
-    not ported yet.)"""
+def capability_profile(num_clients: int, scfg: ScheduleConfig,
+                       topology=None) -> np.ndarray:
+    """[M] relative compute speeds in (0, 1], fixed for the run. A
+    `core.topology.Topology` that carries an explicit capability profile
+    gives it; otherwise `straggler_frac` of the clients (chosen by
+    `scfg.seed`) are slow and draw a capability uniform in
+    [min_capability, 1), and the rest run at 1.0."""
+    if topology is not None and topology.capability is not None:
+        cap = topology.capability_array()
+        if cap.shape != (num_clients,):
+            raise ValueError(
+                f"topology capability profile has shape {cap.shape}, "
+                f"want ({num_clients},)")
+        return cap
     cap = np.ones((num_clients,), np.float64)
     n_slow = int(round(scfg.straggler_frac * num_clients))
     n_slow = min(max(n_slow, 0), num_clients)
@@ -238,3 +280,62 @@ def schedule_stream(
         yield round_schedule(scfg, num_clients, local_steps, i, cap,
                              batch_per_client)
         i += 1
+
+
+# ---------------------------------------------------------------------------
+# masked reductions shared by the round builders (tensors)
+# ---------------------------------------------------------------------------
+
+
+def broadcast_weights(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-client / per-cluster weights [N] reshaped to broadcast over
+    [N, ...]-shaped x."""
+    return w.reshape(tuple(w.shape) + (1,) * (x.ndim - w.ndim))
+
+
+def participation_mean(x: torch.Tensor, mask: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[M, ...] -> [...]: the mean over participating clients only,
+    sum(x * w) / max(sum(w), 1) with w = mask. Masked-out clients are
+    ignored exactly (multiplied by 0.0 before the sum).
+
+    `weights` ([M], e.g. the schedule's sizes) makes it sample-weighted:
+    w = mask * weights, normalised by its largest entry first, so uniform
+    weights give the unweighted mean bit for bit (w / max(w) is exactly
+    the mask)."""
+    w = mask
+    if weights is not None:
+        w = mask * weights
+        wmax = w.max()
+        w = torch.where(wmax > 0, w / wmax, w)
+    wsum = torch.clamp(w.sum(), min=1.0)
+    return (x * broadcast_weights(w, x)).sum(0) / wsum
+
+
+def participation_bcast_mean(x: torch.Tensor, mask: torch.Tensor,
+                             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[M, ...] -> [M, ...]: the participation mean given back to every
+    client (the federation's download), as a contiguous tensor."""
+    return participation_mean(x, mask, weights)[None].expand(x.shape).contiguous()
+
+
+def staleness_weights(staleness: torch.Tensor, decay: float,
+                      max_staleness: Optional[int] = None) -> torch.Tensor:
+    """[M] int staleness -> [M] f32 FedAsync mixing weights: decay **
+    staleness[m], zero beyond `max_staleness`. decay 1.0 with no cutoff is
+    all ones."""
+    s = staleness.to(torch.float32)
+    w = torch.pow(torch.tensor(decay, dtype=torch.float32, device=s.device), s)
+    if max_staleness is not None:
+        w = w * (s <= float(max_staleness)).to(torch.float32)
+    return w
+
+
+def step_activity(mask: torch.Tensor, budget: torch.Tensor,
+                  local_steps: int) -> torch.Tensor:
+    """[k, M] activity: client m is active at local step t iff it
+    participates this round AND t < budget[m] (stragglers drop out of the
+    tail of the round)."""
+    t = torch.arange(local_steps, device=budget.device)
+    in_budget = (t[:, None] < budget[None, :]).to(mask.dtype)
+    return mask[None, :] * in_budget

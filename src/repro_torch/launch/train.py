@@ -1,7 +1,8 @@
-"""Training launcher (port of `repro.launch.train`, the mtsl path on the
-paper classifiers and the decoder LMs): trains on synthetic heterogeneous
-data through the port's registry and loop, on CUDA unless `--device cpu`
-is given.
+"""Training launcher (port of `repro.launch.train`, on the paper
+classifiers and the decoder LMs): trains any registered algorithm (mtsl,
+splitfed, fedavg, fedprox, fedem, smofi, parallelsfl) on synthetic
+heterogeneous data through the port's registry and loop, on CUDA unless
+`--device cpu` is given.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
@@ -13,6 +14,19 @@ Usage:
     # Markov chains (data/lm.py):
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --arch zamba2-7b --steps 3 --seq-len 32
+    # a baseline, billed on an explicit edge graph (history "sim_time"):
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \
+        --arch paper-mlp --algorithm fedprox --local-steps 2 \
+        --topology star --uplink-mbps 10
+
+Algorithm hyper-parameters: `--hp key=value` sets any scalar HParams
+field (e.g. `--hp num_components=4`, `--hp sample_weighted=true`);
+`--prox-mu`, `--momentum` and `--num-clusters` are its deprecated aliases.
+The baselines run the papers' plain local SGD at `--lr`. `--topology`
+(star | clustered | hierarchical | multi-server, with per-link
+`--uplink-mbps` / `--downlink-mbps` / `--backbone-mbps` /
+`--link-latency-ms`) bills every round's traffic and reports the
+simulated wall-clock.
 
 The reference's defaults hold: paper configs are full size unless
 `--smoke`, every other arch takes its smoke config unless `--no-smoke`
@@ -24,11 +38,11 @@ at `--seq-len` (default 256); the server LR multiplier is
 `--server-lr-scale` (default 1/M, the launcher's `server_scaled` policy;
 `train()` without a component LR falls back to 2/M). On CUDA, f32 matmuls
 and convolutions run in full f32 (TF32 off), as the reference computes
-them. Not ported yet: the MoE, VLM and encoder-decoder archs, the six
-baselines, `--mesh`, `--client-chunk`, `--async`, `--topology`, `--data
-cached`, `--checkpoint`, `--vectorized-data` and the prefetch pipeline
-(`--prefetch`; the loop is synchronous, which the reference guarantees
-gives the same trajectory).
+them. Not ported yet: the MoE, VLM and encoder-decoder archs, `--mesh`,
+`--client-chunk`, `--async` and `--sync-every` (the event engine and its
+multi-server replica sync), `--data cached`, `--checkpoint`,
+`--vectorized-data` and the prefetch pipeline (`--prefetch`; the loop is
+synchronous, which the reference guarantees gives the same trajectory).
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import lr_policy
 from repro_torch.core.algorithms import HParams, get_algorithm, list_algorithms
 from repro_torch.core.schedule import ScheduleConfig, padded_batch_per_client
+from repro_torch.core.topology import TOPOLOGIES, build_topology, mbps
 from repro_torch.data.lm import MultiTaskLMSource
 from repro_torch.data.pipeline import client_batches
 from repro_torch.data.synthetic import MultiTaskImageSource
@@ -57,6 +72,18 @@ _HP_FIELDS = {
 }
 
 
+def _coerce_hp(key: str, value: str):
+    default = _HP_FIELDS[key]
+    if isinstance(default, bool):
+        if value.lower() in ("1", "true", "yes", "on"):
+            return True
+        if value.lower() in ("0", "false", "no", "off"):
+            return False
+        raise argparse.ArgumentTypeError(
+            f"--hp {key}= expects a boolean, got {value!r}")
+    return type(default)(value)
+
+
 def parse_hp_overrides(items) -> dict:
     """['key=value', ...] -> validated HParams override dict."""
     out = {}
@@ -69,8 +96,8 @@ def parse_hp_overrides(items) -> dict:
             raise SystemExit(f"unknown hyper-parameter {key!r}; --hp accepts: "
                              f"{', '.join(sorted(_HP_FIELDS))}")
         try:
-            out[key] = type(_HP_FIELDS[key])(value.strip())
-        except ValueError as e:
+            out[key] = _coerce_hp(key, value.strip())
+        except (ValueError, argparse.ArgumentTypeError) as e:
             raise SystemExit(f"bad --hp {item!r}: {e}") from None
     return out
 
@@ -81,9 +108,33 @@ def main(argv=None):
     ap.add_argument("--algorithm", default="mtsl", choices=list_algorithms())
     ap.add_argument("--steps", type=int, default=200,
                     help="total gradient steps (rounds x local-steps)")
+    ap.add_argument("--local-steps", type=int, default=1,
+                    help="local steps per round for round-based FL algorithms")
     ap.add_argument("--hp", action="append", default=[], metavar="KEY=VALUE",
-                    help="algorithm hyper-parameter override (repeatable), "
-                         "e.g. --hp microbatches=2")
+                    help="algorithm hyper-parameter override (repeatable); "
+                         "any scalar HParams field, e.g. --hp prox_mu=0.1 "
+                         "--hp sample_weighted=true")
+    ap.add_argument("--prox-mu", type=float, default=None,
+                    help="DEPRECATED alias for --hp prox_mu=...")
+    ap.add_argument("--momentum", type=float, default=None,
+                    help="DEPRECATED alias for --hp momentum=...")
+    ap.add_argument("--num-clusters", type=int, default=None,
+                    help="DEPRECATED alias for --hp num_clusters=...")
+    ap.add_argument("--topology", default=None,
+                    choices=[t.replace("_", "-") for t in TOPOLOGIES],
+                    help="deploy on an explicit edge graph (core/topology.py)"
+                         " and report the simulated wall-clock per round")
+    ap.add_argument("--num-servers", type=int, default=2,
+                    help="edge servers for clustered/hierarchical/"
+                         "multi-server topologies")
+    ap.add_argument("--uplink-mbps", type=float, default=None,
+                    help="client->server bandwidth (default: infinite)")
+    ap.add_argument("--downlink-mbps", type=float, default=None,
+                    help="server->client bandwidth (default: infinite)")
+    ap.add_argument("--backbone-mbps", type=float, default=None,
+                    help="server<->server/core bandwidth (default: infinite)")
+    ap.add_argument("--link-latency-ms", type=float, default=0.0,
+                    help="one-way latency applied to every declared link")
     ap.add_argument("--participation-rate", type=float, default=1.0,
                     help="per-round client participation probability "
                          "(1.0 = classic full synchronous rounds)")
@@ -137,14 +188,33 @@ def main(argv=None):
     opt_name = args.optimizer or ("sgd" if is_classifier else "adamw")
     opt = sgd(args.lr) if opt_name == "sgd" else adamw(args.lr)
     alg = get_algorithm(args.algorithm)
+    if not alg.uses_optimizer and opt_name != "sgd":
+        print(f"note: {args.algorithm!r} runs the papers' plain local SGD at "
+              f"--lr; --optimizer {opt_name} is ignored")
     scfg = ScheduleConfig(
         participation_rate=args.participation_rate,
         straggler_frac=args.straggler_frac,
         seed=args.seed if args.schedule_seed is None else args.schedule_seed,
         capability_batching=args.capability_batching,
         batch_boost=args.batch_boost)
+    # --hp, with the per-algorithm flags as deprecated aliases (--hp wins)
     hp_overrides = parse_hp_overrides(args.hp)
-    spr = alg.steps_per_round(HParams().with_updates(**hp_overrides))
+    for flag, key in (("--prox-mu", "prox_mu"), ("--momentum", "momentum"),
+                      ("--num-clusters", "num_clusters")):
+        val = getattr(args, key)
+        if val is not None:
+            print(f"note: {flag} is deprecated; use --hp {key}={val}")
+            hp_overrides.setdefault(key, val)
+    topo = None
+    if args.topology is not None:
+        lat = args.link_latency_ms * 1e-3
+        topo = build_topology(
+            args.topology, M, num_servers=args.num_servers,
+            uplink=mbps(args.uplink_mbps or 0.0, lat),
+            downlink=mbps(args.downlink_mbps or 0.0, lat),
+            backbone=mbps(args.backbone_mbps or 0.0, lat))
+    spr = alg.steps_per_round(
+        HParams(local_steps=args.local_steps).with_updates(**hp_overrides))
     # capability batching pads the generated rows so fast clients have
     # headroom; the nominal per-step batch still sets the round total
     per_round_batch = padded_batch_per_client(scfg, args.batch_per_client) * spr
@@ -164,12 +234,15 @@ def main(argv=None):
 
     clr = lr_policy.server_scaled(M, args.server_lr_scale)  # Eq. 9: 1/M
     tcfg = TrainConfig(steps=args.steps, algorithm=args.algorithm, lr=args.lr,
-                       seed=args.seed,
+                       local_steps=args.local_steps, seed=args.seed,
                        hp_overrides=hp_overrides, schedule=scfg,
-                       batch_per_client=args.batch_per_client,
+                       batch_per_client=args.batch_per_client, topology=topo,
                        device=args.device)
     state, history = train(model, opt, batches, tcfg, M, component_lr=clr)
     print(f"final loss: {history[-1]['loss']:.4f}")
+    if topo is not None:
+        print(f"simulated wall-clock ({topo.name}): "
+              f"{history[-1]['sim_time']:.2f}s over {history[-1]['round']} rounds")
     return state, history
 
 

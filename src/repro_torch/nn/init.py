@@ -1,19 +1,39 @@
 """Parameter creation: the reference's init kinds (`repro.nn.init`), drawn
 from an explicit `torch.Generator`. A parameter lands on the generator's
-device. The reference's logical-axis annotations and abstract mode serve
-its mesh sharding and dry-run, which the port does not have yet.
+device, or, inside `abstract_params()`, on the meta device: shapes and
+dtypes without storage, the port's form of the reference's abstract mode
+(parameter counts of full configs that do not fit in memory). The
+reference's logical-axis annotations serve its mesh sharding, which the
+port does not have yet.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 
+_ABSTRACT = [False]
+
+
+@contextlib.contextmanager
+def abstract_params():
+    """Create parameters on the meta device inside this context."""
+    _ABSTRACT.append(True)
+    try:
+        yield
+    finally:
+        _ABSTRACT.pop()
+
+
+def _device(gen: torch.Generator) -> torch.device:
+    return torch.device("meta") if _ABSTRACT[-1] else gen.device
+
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float, dtype):
     """Normal truncated at ±2σ, drawn in f32, cast, then scaled by σ."""
-    x = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    x = torch.empty(tuple(shape), dtype=torch.float32, device=_device(gen))
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return x.to(dtype).mul_(stddev)
 
@@ -35,7 +55,7 @@ def param(
     if init == "fan_in":
         return truncated_normal(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype)
     if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=gen.device)
+        return torch.zeros(shape, dtype=dtype, device=_device(gen))
     if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=gen.device)
+        return torch.ones(shape, dtype=dtype, device=_device(gen))
     raise ValueError(f"unknown init {init!r}")

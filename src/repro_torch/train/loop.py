@@ -1,18 +1,28 @@
 """Training loop (port of `repro.train.loop.train`, its synchronous path):
 drives data -> round_fn -> metrics/eval for any algorithm in the port's
-registry (core/algorithms.py), with the reference's history entries.
+registry (core/algorithms.py: mtsl and the six baselines), with the
+reference's history entries.
 
 Each iteration consumes one ROUND batch `[M, steps_per_round * b, ...]`
 (numpy, from `data.pipeline.client_batches`) and stages it on the state's
 device synchronously. `TrainConfig.steps` counts GRADIENT steps, so the
 loop runs `ceil(steps / steps_per_round)` rounds. Every round draws a
 seeded ClientSchedule from `TrainConfig.schedule` (the default is the
-full synchronous round).
+full synchronous round); a heterogeneous schedule also hands the
+capability profile to the algorithm (HParams.capability).
+
+Edge topology and simulated clock (core/topology.py): with
+`TrainConfig.topology` set, every round's traffic (the algorithm's
+`round_events`) is billed on that graph and history entries carry
+"sim_time", the cumulative simulated seconds of per-client compute
+(`time_per_sample_s` x samples x steps / capability) and per-link
+transfers. A topology with an explicit capability profile overrides the
+schedule's drawn one. The training itself is unchanged.
 
 The reference runs the host side `prefetch` rounds ahead on a thread and
 guarantees that any depth gives the same trajectory, so this synchronous
 loop (depth 0) reproduces it. Not ported yet, and refused with an error:
-the async event engine, topologies and their simulated clock, mesh
+the async event engine (with it the multi-server replica sync), mesh
 sharding, client chunking and checkpoints.
 """
 from __future__ import annotations
@@ -25,15 +35,26 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.algorithms import HParams, get_algorithm, num_rounds
-from repro_torch.core.schedule import ScheduleConfig, full_schedule, schedule_stream
+from repro_torch.core import comm_cost
+from repro_torch.core.algorithms import (
+    HParams,
+    get_algorithm,
+    num_rounds,
+    simulate_round_walltime,
+)
+from repro_torch.core.schedule import (
+    ScheduleConfig,
+    capability_profile,
+    full_schedule,
+    schedule_stream,
+)
+from repro_torch.core.topology import Topology
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.optim.per_component import ComponentLR
 from repro_torch.utils.device import generator, resolve_device
 
-_NOT_PORTED = ("checkpoint_path", "topology", "mesh", "client_chunk",
-               "async_mode")
+_NOT_PORTED = ("checkpoint_path", "mesh", "client_chunk", "async_mode")
 
 
 @dataclass
@@ -50,12 +71,17 @@ class TrainConfig:
     schedule: ScheduleConfig = field(default_factory=ScheduleConfig)
     # nominal per-step batch per client; required under capability batching
     batch_per_client: Optional[int] = None
-    # HParams overrides (the launcher's --hp key=value group)
+    # explicit edge deployment graph: bill each round's traffic on it and
+    # record "sim_time" (see the module docstring)
+    topology: Optional[Topology] = None
+    # simulated seconds of client compute per sample at capability 1.0
+    time_per_sample_s: float = 1e-3
+    # HParams overrides (the launcher's --hp key=value group): the
+    # per-algorithm knobs such as prox_mu, momentum, num_clusters
     hp_overrides: dict = field(default_factory=dict)
     device: str = "cuda"
     # not ported yet: setting any of these raises
     checkpoint_path: Optional[str] = None
-    topology: Optional[object] = None
     mesh: Optional[object] = None
     client_chunk: Optional[int] = None
     async_mode: bool = False
@@ -87,7 +113,8 @@ def train(
     `batches` yields numpy round batches; `eval_batches` (numpy or tensor
     batches) are cycled through at the eval cadence, and the run's last
     round always evals when eval is configured. History entries carry
-    step, round, loss, time and participants, plus acc_mtl on eval rounds.
+    step, round, loss, time and participants, plus acc_mtl on eval rounds
+    and sim_time under a topology.
     The state is built on `tcfg.device` from `tcfg.seed` unless
     `init_state` is given."""
     for name in _NOT_PORTED:
@@ -102,9 +129,12 @@ def train(
             "ScheduleConfig.capability_batching needs "
             "TrainConfig.batch_per_client (the nominal per-step batch) to "
             "apportion per-client microbatch sizes")
+    cap = capability_profile(num_clients, scfg, tcfg.topology)
     hp = HParams(lr=tcfg.lr, local_steps=tcfg.local_steps,
                  optimizer=optimizer, component_lr=component_lr,
-                 microbatches=tcfg.microbatches)
+                 microbatches=tcfg.microbatches,
+                 sample_weighted=scfg.sample_weighted,
+                 capability=None if scfg.is_trivial else tuple(cap))
     if tcfg.hp_overrides:
         hp = hp.with_updates(**tcfg.hp_overrides)
     spr = alg.steps_per_round(hp)
@@ -126,12 +156,32 @@ def train(
         sched_iter = schedule_stream(scfg, num_clients, spr,
                                      tcfg.batch_per_client)
 
+    # simulated clock: each round's traffic events billed on the graph
+    topo, round_sim_s = tcfg.topology, None
+    if topo is not None:
+        if topo.capability is None:
+            topo = topo.with_capability(cap)
+        tower_p, total_p = comm_cost.model_param_counts(model)
+
+        def round_sim_s(r, b, sched):
+            # b: the per-step row width as generated (padded under
+            # capability batching, where sizes carry the true counts)
+            return simulate_round_walltime(
+                alg, topo, model.cfg, num_clients, b, hp, sched,
+                tower_params=tower_p, total_params=total_p,
+                time_per_sample_s=tcfg.time_per_sample_s,
+                round_idx=r, local_steps=spr)
+
     history = []
+    sim_time = 0.0
     t0 = time.time()  # reporting-only (history["time"]), never trajectory
     for i, (batch, sched) in enumerate(zip(itertools.islice(batches, rounds),
                                            sched_iter)):
         r = i + 1  # 1-based round index
         state, metrics = round_fn(state, stage_batch(batch, device), sched)
+        if round_sim_s is not None:
+            width = next(iter(batch.values())).shape[1] // spr
+            sim_time += round_sim_s(r, width, sched)
         do_log = bool((tcfg.log_every and r % tcfg.log_every == 0)
                       or i == 0 or r == rounds)
         do_eval = bool(eval_fn is not None and tcfg.eval_every
@@ -142,6 +192,8 @@ def train(
                  "loss": float(metrics["loss"]),
                  "time": time.time() - t0,
                  "participants": sched.num_participants}
+        if round_sim_s is not None:
+            entry["sim_time"] = sim_time
         if do_eval:
             ev = eval_fn(state, stage_batch(next(eval_iter), device))
             entry["acc_mtl"] = float(ev.get("acc_mtl", float("nan")))

@@ -1,6 +1,16 @@
 """Weight transfer from the JAX reference: `params_from_jax` takes the
 reference's stripped `{"towers", "server"}` parameter tree as numpy arrays
-(towers stacked `[M, ...]`) and returns the port's tree.
+(towers stacked `[M, ...]`) and returns the port's tree;
+`state_from_jax(name, state, ...)` does the same for the state of each
+registered algorithm (numpy leaves, as `jax.tree.map(np.asarray, state)`
+gives them):
+
+  mtsl          TrainState(params, opt_state (), step) (plain SGD)
+  fedavg, fedprox  {"towers": [M..], "servers": [M..]}
+  splitfed      {"towers": [M..], "server"}
+  smofi         {"towers": [M..], "server", "smom"} (smom as the server)
+  parallelsfl   {"towers": [M..], "servers": [C..], "cidx": [M] int64}
+  fedem         (components [K..] of {"tower", "server"}, pi [M, K] f32)
 
 For the paper classifiers (`family` "mlp" / "resnet") keys and layouts
 are kept as they are, every leaf in f32 (their `cfg.dtype`). For the
@@ -9,8 +19,9 @@ decoder models (`family` "dense" / "ssm" / "hybrid"):
   * keys are kept, the stack-level `shared` block of a hybrid stack
     included;
   * a `seg{i}` segment that the reference stacks along a layer axis (a
-    repeating segment under `cfg.scan_layers`; the axis follows the client
-    axis in the towers) becomes a list with one unit dict per repeat;
+    repeating segment under `cfg.scan_layers`; the axis follows the leading
+    client, cluster or component axis of a stacked tree) becomes a list
+    with one unit dict per repeat;
   * the result is the training tree (`models/layers.py`): every leaf in
     `cfg.param_dtype`, as the reference holds it, and the Mamba leaves
     `A_log`, `D` and `dt_bias` in f32.
@@ -60,21 +71,59 @@ def _blocks(blocks, kinds, axis: int, device, cfg: ModelConfig):
     return out
 
 
-def params_from_jax(tree: PyTree, device, cfg: ModelConfig) -> PyTree:
+def _tower(tree, axis: int, device, cfg: ModelConfig):
+    """A tower tree; `axis` is the segments' layer axis (1 under a leading
+    client axis, 0 for one unstacked tower)."""
     if cfg.family in ("mlp", "resnet"):
-        return {"towers": convert_tree(tree["towers"], device, cfg),
-                "server": convert_tree(tree["server"], device, cfg)}
-    kinds = cfg.layer_kinds
-    split = cfg.split_layers
-    towers, server = tree["towers"], tree["server"]
-    return {
-        "towers": {
-            "embed": convert_tree(towers["embed"], device, cfg),
-            "blocks": _blocks(towers["blocks"], kinds[:split], 1, device, cfg),
-        },
-        "server": {
-            "blocks": _blocks(server["blocks"], kinds[split:], 0, device, cfg),
-            "norm": convert_tree(server["norm"], device, cfg),
-            "head": convert_tree(server["head"], device, cfg),
-        },
-    }
+        return convert_tree(tree, device, cfg)
+    return {"embed": convert_tree(tree["embed"], device, cfg),
+            "blocks": _blocks(tree["blocks"], cfg.layer_kinds[:cfg.split_layers],
+                              axis, device, cfg)}
+
+
+def _server(tree, axis: int, device, cfg: ModelConfig):
+    """A server tree; `axis` as in `_tower`."""
+    if cfg.family in ("mlp", "resnet"):
+        return convert_tree(tree, device, cfg)
+    return {"blocks": _blocks(tree["blocks"], cfg.layer_kinds[cfg.split_layers:],
+                              axis, device, cfg),
+            "norm": convert_tree(tree["norm"], device, cfg),
+            "head": convert_tree(tree["head"], device, cfg)}
+
+
+def params_from_jax(tree: PyTree, device, cfg: ModelConfig) -> PyTree:
+    return {"towers": _tower(tree["towers"], 1, device, cfg),
+            "server": _server(tree["server"], 0, device, cfg)}
+
+
+def state_from_jax(name: str, state, device, cfg: ModelConfig):
+    """The port's state of algorithm `name` from the reference's (see the
+    module docstring)."""
+    if name == "mtsl":
+        from repro_torch.core.mtsl import TrainState
+
+        if len(state.opt_state):
+            raise ValueError("state_from_jax: mtsl's optimizer state carries "
+                             "over only for plain SGD (an empty opt_state)")
+        params = tree_map(lambda x: x.requires_grad_(),
+                          params_from_jax(state.params, device, cfg))
+        return TrainState(params, (), int(state.step))
+    if name in ("fedavg", "fedprox"):
+        return {"towers": _tower(state["towers"], 1, device, cfg),
+                "servers": _server(state["servers"], 1, device, cfg)}
+    if name == "splitfed":
+        return params_from_jax(state, device, cfg)
+    if name == "smofi":
+        return {**params_from_jax(state, device, cfg),
+                "smom": _server(state["smom"], 0, device, cfg)}
+    if name == "parallelsfl":
+        return {"towers": _tower(state["towers"], 1, device, cfg),
+                "servers": _server(state["servers"], 1, device, cfg),
+                "cidx": torch.tensor(np.asarray(state["cidx"]), dtype=torch.int64,
+                                     device=device)}
+    if name == "fedem":
+        comps, pi = state
+        return ({"tower": _tower(comps["tower"], 1, device, cfg),
+                 "server": _server(comps["server"], 1, device, cfg)},
+                torch.tensor(np.asarray(pi, dtype=np.float32), device=device))
+    raise ValueError(f"state_from_jax: unknown algorithm {name!r}")

@@ -186,3 +186,34 @@ def test_multi_kernel_unaligned_odd_and_mixed_leaves():
     gs[6] = g.permute(0, 4, 3, 1, 2).contiguous().permute(0, 3, 4, 2, 1)
     assert not gs[6].is_contiguous() and torch.equal(gs[6], g)
     _check_multi(ps, gs, etas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_kernel_holds_zero_step_rows(dtype):
+    """The baselines' straggler hold: one launch over a table whose step
+    sizes are partly 0 (the per-client rows of a full model, held rows
+    where a client is past its budget; a per-cluster leaf with an idle
+    cluster; a shared leaf on a step with no active client) leaves every
+    held row bit-unchanged and steps the others as the plain version."""
+    _need_card()
+    M, C = 10, 2
+    live = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0, 1, 1], dtype=torch.float32,
+                        device="cuda")
+    # every leaf of full paper-resnet16 as a per-client copy [M, ...]
+    shapes = [(shape if rows == M else (M,) + shape, M) for shape, rows in
+              (pr.values for pr in _train_leaves("paper-resnet16"))]
+    shapes += [((C, 3, 3, 32, 64), C), ((64, 10), 1), ((4097,), 1)]
+    ps, gs, etas = [], [], []
+    for i, (shape, rows) in enumerate(shapes):
+        p, g, _ = _inputs(shape, dtype, rows, seed=40 + i)
+        eta = {M: 0.1 * live, C: torch.tensor([0.0, 0.1], device="cuda"),
+               1: torch.zeros(1, device="cuda")}[rows]
+        ps.append(p), gs.append(g), etas.append(eta)
+    before = [p.clone() for p in ps]
+    _check_multi(ps, gs, etas)
+    for p, b, eta in zip(ps, before, etas):
+        held = eta == 0
+        assert held.any()
+        assert torch.equal(p.reshape(eta.numel(), -1)[held],
+                           b.reshape(eta.numel(), -1)[held])
