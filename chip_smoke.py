@@ -66,7 +66,10 @@ Phases, each of which must pass (any failure exits non-zero):
           leaf, max |card - CPU| / max |CPU|: within 1e-12 in f64 (the
           witness that both compute one function) and within 2e-3 in
           f32, with the tower ReLU inputs that f32 rounds to the other
-          side of 0 counted on each side. Then 3 rounds in f32: at lr
+          side of 0 counted on each side. Then 3 rounds in f32, the card's
+          rounds under torch.use_deterministic_algorithms (cuDNN's default
+          convolutions vary in the last bits from run to run, and no op
+          without a deterministic algorithm may run): at lr
           0.01 losses within 1e-5 relative and every parameter within
           1e-5; at lr 0.1 losses within 1e-5 relative and the parameter
           gap reported (the f32 gradient gap times the step exceeds 1e-5
@@ -77,14 +80,22 @@ Phases, each of which must pass (any failure exits non-zero):
   k2      K2 against its plain version (mha_reference) on the LM path's
           shape (zamba2-7b's shared attention: B = 2, H = 32, S = 2048,
           D = 112, bf16, causal) and with GQA, a window, a ragged S and in
-          f32: bf16 within 2e-2, f32 within 2e-5 (absolute plus relative,
-          as tests/test_kernels.py holds them). Times the kernel, the plain
-          version and F.scaled_dot_product_attention with the same mask (a
-          yardstick only: the port never calls it), each behind an L2
-          flush; the bound is the larger of the bytes (q, k, v, out once)
-          over 3.35 TB/s and 4 D flops per visible (query, key) pair over
-          the dtype's peak, and bound_share = bound / kernel time. Each
-          case launches twice: the outputs must be bit-equal.
+          f32; then at the shapes the zoo phases run: whisper-tiny's
+          encoder (B = 8, S = 1500, H = 6, D = 64, non-causal), its
+          decoder's causal self-attention (B = 32, S = 448) and cross
+          attention (B = 32, Sq = 448, Sk = 1500), llama-3.2-vision's
+          cross attention (B = 2, Sq = 2048, Sk = 1601, H = 32 / 8,
+          D = 128), deepseek-moe-16b's causal attention (B = 2, S = 2048,
+          H = 16, D = 128) and an f32 cross case: bf16 within 2e-2, f32
+          within 2e-5 (absolute plus relative, as tests/test_kernels.py
+          holds them). Times the kernel, the plain version and
+          F.scaled_dot_product_attention with the same mask (a yardstick
+          only: the port never calls it), each behind an L2 flush; the
+          bound is the larger of the bytes (q, k, v, out once) over 3.35
+          TB/s and 4 D flops per visible (query, key) pair (Sq x Sk
+          without the causal mask) over the dtype's peak, and bound_share
+          = bound / kernel time. Each case launches twice: the outputs
+          must be bit-equal.
   k3      K3 against its plain version (ssd_reference) on zamba2-7b's
           server shape (B = 2, L = 2048, H = 112, P = N = 64, chunk 128,
           bf16), its tower shape (B = 1), mamba2-130m's (B = 16, L = 256,
@@ -154,7 +165,8 @@ Phases, each of which must pass (any failure exits non-zero):
   bparity  card against CPU for the baselines. Full paper-resnet16, M =
           10, b = 8, TF32 off, participation 0.5 with stragglers,
           local_steps 2, lr 0.01, 3 rounds of each of the six from one
-          initial state and the same batches: losses within 1e-5 relative,
+          initial state and the same batches, the card's rounds under
+          deterministic algorithms as in tparity: losses within 1e-5 relative,
           every parameter leaf (and FedEM's responsibilities) within 1e-4,
           ParallelSFL's cluster map equal, SMoFi's momentum buffer (a sum
           of raw gradients) within GRAD_GAP_F32 of its scale, as tparity
@@ -181,6 +193,32 @@ Phases, each of which must pass (any failure exits non-zero):
           launches == local steps x rounds. Reports s per round, peak
           memory and the losses. (fedavg on zamba2-7b at full width needs
           M full copies of 7.26 B f32 parameters: it does not fit 80 GB.)
+  encdec, moe, vlm  the rest of the model zoo at full width, each through
+          train/loop.py::train and the registry with SGD (ZOO_RUNS), on
+          tokens from a 4096-token MultiTaskLMSource (the model's
+          vocabulary stays full) plus, for the VLM, vision features and,
+          for the encoder-decoder, audio frames from
+          np.random.default_rng: whisper-tiny at full width and depth (4 +
+          4 layers, d 384, 1500 frames, vocabulary 51,865; M = 4, b = 8,
+          S = 448, 10 rounds), deepseek-moe-16b at 13 of its 28 layers (64
+          routed experts of 1408 + 2 shared, top-6, a dense lead layer of
+          11,264; M = 2, b = 1, S = 2048, 3 rounds) and
+          llama-3.2-vision-11b at 25 of its 40 layers (cross layers at 5,
+          10, ..., 25; vision 1601 x 1280; M = 2, b = 1, S = 2048, 3
+          rounds). Checks finite losses, K2 launches per round in each mode
+          (causal, non-causal self, cross) equal to the count from the
+          stacks' block kinds and remat, no plain attention forward on the
+          card, and K1 once a round over every leaf. Reports s per round,
+          peak memory, the losses, the MoE's dropped-row share (rows over
+          an expert's capacity) and a torch.profiler pass over one more
+          round (device busy share, top kernels, the round's aux loss).
+  fparity  the smoke configs of deepseek-moe-16b, qwen3-moe-30b-a3b,
+          mistral-nemo-12b, llama-3.2-vision-11b and whisper-tiny in f32
+          (K2's f32 path in every mode, K1): 3 masked mtsl rounds on the
+          card against the CPU from one initial tree, with lm-parity's
+          limits (losses within 1e-5 relative, parameters within 1e-4) and
+          K2's launches per mode as counted; then two seeded card runs of
+          each MoE arch (deterministic algorithms on): bit-equal.
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -190,7 +228,7 @@ not counted; K1's tree call_ms leaves the spin out to count it.
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line, and as its last line `{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only k2,kernel` runs the build and the named
-phases alone and prints no result line. Without CUDA,
+phases alone and prints no result line. Each run prints its total time. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -223,11 +261,24 @@ K2 = {"name": "flash_attention", "route": "cuda",
 K3 = {"name": "ssd_scan", "route": "cuda",
       "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
       "replaces": "src/repro/kernels/ssd_scan/kernel.py:86"}
-K2_CASES = [  # (case, B, S, Hq, Hkv, D, window, dtype); the first is the path's
-    ("zamba2_path", 2, 2048, 32, 32, 112, 0, "bfloat16"),
-    ("gqa4_swa1024", 2, 2048, 32, 8, 128, 1024, "bfloat16"),
-    ("ragged_s1000", 2, 1000, 16, 16, 112, 0, "bfloat16"),
-    ("f32_s512", 1, 512, 8, 4, 112, 0, "float32"),
+K2_CASES = [  # (case, B, Sq, Sk, causal, Hq, Hkv, D, window, dtype); the
+    # first is lm-train's path
+    ("zamba2_path", 2, 2048, 2048, True, 32, 32, 112, 0, "bfloat16"),
+    ("gqa4_swa1024", 2, 2048, 2048, True, 32, 8, 128, 1024, "bfloat16"),
+    ("ragged_s1000", 2, 1000, 1000, True, 16, 16, 112, 0, "bfloat16"),
+    ("f32_s512", 1, 512, 512, True, 8, 4, 112, 0, "float32"),
+    # whisper-tiny's encoder (non-causal, D = 64: the DP = 64 tiles), its
+    # decoder's causal self-attention and its cross attention to the 1500
+    # frames, at the encdec phase's tower (B = b) and server (B = M b) batches
+    ("whisper_enc", 8, 1500, 1500, False, 6, 6, 64, 0, "bfloat16"),
+    ("whisper_dec", 32, 448, 448, True, 6, 6, 64, 0, "bfloat16"),
+    ("whisper_xattn", 32, 448, 1500, False, 6, 6, 64, 0, "bfloat16"),
+    # llama-3.2-vision's cross attention to one tile of 1601 patches, on the
+    # server (every cross layer lies above the split: B = M b)
+    ("vlm_xattn", 2, 2048, 1601, False, 32, 8, 128, 0, "bfloat16"),
+    # deepseek-moe-16b's causal attention (MHA, no window) on the server
+    ("moe_path", 2, 2048, 2048, True, 16, 16, 128, 0, "bfloat16"),
+    ("f32_xattn", 2, 200, 333, False, 4, 2, 64, 0, "float32"),
 ]
 # K2's bf16 outputs are also held as a whole: the elementwise limit above
 # lets one bf16 step through at |out| ~ 1, which at S = 2048 (|out| ~ 0.05)
@@ -249,6 +300,28 @@ LM_TRAIN = {"arch": "zamba2-7b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
             "lr": 0.05, "data_vocab": 4096}
 LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 100,
             "lr": 3e-3, "data_vocab": 4096, "log_every": 10}
+# the rest of the zoo at full width (num_layers: the depth cut, None for
+# full depth), each trained with SGD through the loop on a 4096-token LM
+# source (the model's vocabulary stays full)
+ZOO_RUNS = {
+    # whisper-tiny at full width and depth (4 + 4 layers, 1500 frames,
+    # whisper's 448-token text context)
+    "encdec": {"arch": "whisper-tiny", "M": 4, "b": 8, "S": 448, "rounds": 10,
+               "lr": 0.05, "data_vocab": 4096, "num_layers": None},
+    # deepseek-moe-16b, 13 of 28 layers: 8.44 B parameters with M = 2
+    # (f32 masters and gradients of the full depth, 17.26 B, would take
+    # ~138 GB; 10 layers peaked at 54.4 GiB on an H100, each MoE layer adds
+    # ~4.4 GiB)
+    "moe": {"arch": "deepseek-moe-16b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
+            "lr": 0.05, "data_vocab": 4096, "num_layers": 13},
+    # llama-3.2-vision-11b, 25 of 40 layers (cross layers at 5, 10, ..., 25):
+    # 8.12 B parameters with M = 2 (full depth: 11.52 B, ~92 GB; 20 layers
+    # peaked at 58.1 GiB)
+    "vlm": {"arch": "llama-3.2-vision-11b", "M": 2, "b": 1, "S": 2048,
+            "rounds": 3, "lr": 0.05, "data_vocab": 4096, "num_layers": 25},
+}
+ZOO_PARITY_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b", "mistral-nemo-12b",
+                    "llama-3.2-vision-11b", "whisper-tiny")
 # (case, shape, rows, dtype) beyond the train paths' own leaves
 K1_FLAT_CASES = [
     ("flat_2^26_f32", (1 << 26,), 1, "float32"),
@@ -294,6 +367,27 @@ GRAD_GAP_F32 = 2e-3
 # CPU's buffer (read: 9.4e-16 of its scale) and that f32 itself puts
 # that leaf 1.2e-3 of its scale from f64 on each side
 GRADIENT_SUM_LEAVES = ("smom/",)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """torch.use_deterministic_algorithms(True, warn_only=True) inside the
+    block. Yields a list that, after the block, names the ops that ran and
+    have no deterministic algorithm on the card (their warnings). The card
+    side of tparity's and bparity's f32 trajectories runs inside it: with
+    the defaults, cuDNN's convolutions give resnet16 a different state each
+    run, which SMoFi's momentum can carry past the loss tolerance
+    (tests/torch_card_determinism.py)."""
+    ops = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops += sorted({str(w.message).split(".")[0][:100] for w in caught
+                   if "deterministic" in str(w.message)})
 
 
 def _fail(msg: str) -> int:
@@ -998,7 +1092,11 @@ def _card_vs_cpu_rounds(torch, lr: float, rounds: int = 3):
     n0, l0 = mtsl_update_multi_.launches, mtsl_update_multi_.leaves
     per_round = []
     for batch, sched in stream:
-        gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
+        with _deterministic(torch) as nondet:
+            gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
+        if nondet:
+            raise AssertionError(f"lr {lr}: card ops without a deterministic "
+                                 f"algorithm: {nondet}")
         cpu, mc = rf_cpu(cpu, stage_batch(batch, "cpu"), sched)
         lg, lc = float(mg["loss"]), float(mc["loss"])
         if not abs(lg - lc) <= 1e-5 * abs(lc):
@@ -1061,8 +1159,13 @@ def _allclose(got, want, tol: float) -> bool:
     return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
-def _visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs a causal (+ window) mask lets through, per head."""
+def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per head: all Sq x Sk
+    without the causal mask (the paths' non-causal calls have no window),
+    else those of a causal (+ window) mask over Sq = Sk."""
+    if not causal:
+        return Sq * Sk
+    S = Sq
     if not window or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
@@ -1078,13 +1181,13 @@ def k2_phase(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     tol = {"bfloat16": 2e-2, "float32": 2e-5}
     rows = []
-    for name, B, S, Hq, Hkv, D, window, dt in K2_CASES:
+    for name, B, Sq, Sk, causal, Hq, Hkv, D, window, dt in K2_CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
-                   for h in (Hq, Hkv, Hkv))
-        out = flash_attention(q, k, v, True, window)
-        again = flash_attention(q, k, v, True, window)
-        ref = mha_reference(q, k, v, causal=True, window=window)
+                   for S, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+        out = flash_attention(q, k, v, causal, window)
+        again = flash_attention(q, k, v, causal, window)
+        ref = mha_reference(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
             raise AssertionError(f"K2 {name}: two launches differ")
@@ -1094,26 +1197,27 @@ def k2_phase(torch, dev):
             raise AssertionError(
                 f"K2 {name}: kernel vs plain beyond {tol[dt]} (abs + rel; max "
                 f"|diff| {err}) or ||diff|| / ||ref|| {rel_l2} > {K2_REL_L2[dt]}")
-        nbytes = 2 * (B * S * Hq * D + B * S * Hkv * D) * q.element_size()
-        flops = 4 * D * Hq * B * _visible_pairs(S, window)
+        nbytes = 2 * (B * Sq * Hq * D + B * Sk * Hkv * D) * q.element_size()
+        flops = 4 * D * Hq * B * _visible_pairs(Sq, Sk, causal, window)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if window:
-            amask = attn_mask(S, S, causal=True, window=window, device=dev)
+            amask = attn_mask(Sq, Sk, causal=causal, window=window, device=dev)
 
             def library():
                 return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=amask,
                                                       enable_gqa=True)
         else:
             def library():
-                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                       enable_gqa=True)
         row = {
-            "case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
-            "window": window, "dtype": dt, "max_abs_err": err, "rel_l2_err": rel_l2,
-            "ms": _median_ms(lambda: flash_attention(q, k, v, True, window), 20, flush),
+            "case": name, "B": B, "Sq": Sq, "Sk": Sk, "causal": causal, "Hq": Hq,
+            "Hkv": Hkv, "D": D, "window": window, "dtype": dt, "max_abs_err": err,
+            "rel_l2_err": rel_l2,
+            "ms": _median_ms(lambda: flash_attention(q, k, v, causal, window), 20, flush),
             "plain_ms": _median_ms(
-                lambda: mha_reference(q, k, v, causal=True, window=window), 5, flush),
+                lambda: mha_reference(q, k, v, causal=causal, window=window), 5, flush),
             "library_ms": _median_ms(library, 20, flush),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1236,7 +1340,10 @@ def _lm_counts(torch):
 
     from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
 
-    return {"k2": (flash_attention, "launches"), "k3": (ssd_scan, "launches"),
+    return {"k2": (flash_attention, "launches"),
+            "k2_bidir": (flash_attention, "launches_bidir"),
+            "k2_cross": (flash_attention, "launches_cross"),
+            "k3": (ssd_scan, "launches"),
             "k3_tc": (ssd_scan, "launches_tc"), "k1": (mtsl_update_multi_, "launches"),
             "k1_leaves": (mtsl_update_multi_, "leaves"),
             "k1_single": (mtsl_update_, "launches"),
@@ -1254,27 +1361,36 @@ def _read_counts(torch):
     return {name: getattr(obj, attr) for name, (obj, attr) in _lm_counts(torch).items()}
 
 
+# (K2 causal, K2 non-causal self, K2 cross, K3) launches of one block's
+# forward, by kind
+_BLOCK_LAUNCHES = {"full": (1, 0, 0, 0), "swa": (1, 0, 0, 0),
+                   "dense_moe_lead": (1, 0, 0, 0), "moe": (1, 0, 0, 0),
+                   "bidir": (0, 1, 0, 0), "cross": (1, 0, 1, 0),
+                   "mamba": (0, 0, 0, 1), "shared_attn": (1, 0, 0, 1)}
+
+
 def _lm_launches_per_round(cfg, M: int, microbatches: int = 1,
                            local_steps: int = 1, full_models: bool = False) -> dict:
-    """K2 and K3 launches one round makes: each shared_attn layer runs one
-    attention and one Mamba2 scan, each mamba layer one scan; the towers
-    run once per client and local step, the server once per step (mtsl,
-    splitfed: the clients' smashed data folds into one batch) or once per
-    client and step (`full_models`: fedavg's per-client full models); under
-    remat every unit's forward runs again in the backward."""
-    kinds = cfg.layer_kinds
-    tower, server = kinds[:cfg.split_layers], kinds[cfg.split_layers:]
+    """K2 (all, and the non-causal self and cross ones apart) and K3
+    launches one round makes, from each stack's block kinds
+    (`models.registry.stack_kinds`, _BLOCK_LAUNCHES): the towers run once
+    per client and local step, the server once per step (mtsl, splitfed:
+    the clients' smashed data folds into one batch) or once per client and
+    step (`full_models`: fedavg's per-client full models); under remat
+    every unit's forward runs again in the backward."""
+    from repro_torch.models.registry import stack_kinds
+
     remat = 1 if cfg.remat == "none" else 2
     n = remat * microbatches * local_steps
-    servers = M if full_models else 1
-
-    def count(ks, *names):
-        return sum(k in names for k in ks)
-
-    return {"k2": n * (M * count(tower, "shared_attn", "full", "swa")
-                       + servers * count(server, "shared_attn", "full", "swa")),
-            "k3": n * (M * count(tower, "mamba", "shared_attn")
-                       + servers * count(server, "mamba", "shared_attn"))}
+    tot = [0, 0, 0, 0]
+    for (side, _), kinds in stack_kinds(cfg).items():
+        times = M if side == "tower" or full_models else 1
+        for kind in kinds:
+            for i, c in enumerate(_BLOCK_LAUNCHES[kind]):
+                tot[i] += n * times * c
+    causal, bidir, cross, k3 = tot
+    return {"k2": causal + bidir + cross, "k2_bidir": bidir, "k2_cross": cross,
+            "k3": k3}
 
 
 _KERNEL_KINDS = (  # (kind, substrings of the kernel's name), first match wins
@@ -1294,7 +1410,7 @@ def _profile_round(torch, rf, state, batch, sched):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, metrics = rf(state, batch, sched)
-        float(metrics["loss"])
+        loss = float(metrics["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1312,6 +1428,7 @@ def _profile_round(torch, rf, state, batch, sched):
                     "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
     return state, {
+        "loss": loss, "aux": float(metrics["aux"]),
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "k2_device_ms": share("flash_attention"),
@@ -1564,22 +1681,165 @@ def lm_parity_phase(torch):
         # deterministic algorithms where PyTorch has them; an op without one
         # (torch.cumsum on CUDA, in the plain SSD backward) only warns, and
         # the warnings are reported
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                finals = [[x.detach().clone() for x in tree_leaves(
-                    _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)[0].params)]
-                    for _ in range(2)]
-            finally:
-                torch.use_deterministic_algorithms(False)
+        with _deterministic(torch) as nondet:
+            finals = [[x.detach().clone() for x in tree_leaves(
+                _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)[0].params)]
+                for _ in range(2)]
         if not all(torch.equal(a, b) for a, b in zip(*finals)):
             raise AssertionError(f"lm-parity {arch}: two seeded card runs differ")
-        nondet = sorted({str(w.message).split(".")[0][:100] for w in caught
-                         if "deterministic" in str(w.message)})
         out[arch] = {"card": mg, "cpu": mc, "max_param_abs_diff": err,
                      "worst_leaf": leaf, "counts": counts, "repeat_bit_equal": True,
                      "ops_without_deterministic_algorithm": nondet}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model zoo: encoder-decoder, MoE, VLM
+# ---------------------------------------------------------------------------
+
+
+def _zoo_batches(cfg, M: int, b: int, S: int, n: int, seed: int, vocab: int,
+                 beta: float = 1.0) -> list:
+    """n round batches: {"tokens": [M, b, S]} from the LM source at
+    `vocab`, plus the VLM's "vis" [M, b, vis_seq, vis_dim] or the
+    encoder-decoder's "frames" [M, b, encoder_seq, d_model] in f32 from
+    np.random.default_rng(seed) (the reference's launch/specs.py shapes)."""
+    import numpy as np
+
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+
+    src = MultiTaskLMSource(vocab_size=vocab, num_clients=M, beta=beta, seed=seed)
+    rng = np.random.default_rng(seed)
+    out = []
+    for batch in client_batches(src, b, steps=n, seed=seed, seq_len=S):
+        if cfg.family == "vlm":
+            batch["vis"] = rng.standard_normal((M, b, cfg.vis_seq, cfg.vis_dim),
+                                               dtype=np.float32)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (M, b, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+        out.append(batch)
+    return out
+
+
+def zoo_phase(torch, dev, key: str):
+    """One of ZOO_RUNS trained through train/loop.py::train and the registry
+    (see the module docstring), the counts set to 0 just before and read
+    just after."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.schedule import full_schedule
+    from repro_torch.models.moe import moe_forward
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, stage_batch, train
+    from repro_torch.utils.tree import tree_leaves
+
+    c = ZOO_RUNS[key]
+    cfg = get_config(c["arch"])
+    if c["num_layers"]:
+        cfg = cfg.with_updates(num_layers=c["num_layers"])
+    M, rounds = c["M"], c["rounds"]
+    model = build_model(cfg)
+    # drawn before the clock starts: the frames are 74 MB a round
+    batches = _zoo_batches(cfg, M, c["b"], c["S"], rounds + 1, 0, c["data_vocab"])
+    tcfg = TrainConfig(steps=rounds, lr=c["lr"], log_every=1, seed=0, device=dev.type)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(torch)
+    moe_forward.tally = [] if cfg.family == "moe" else None
+    try:
+        t0 = time.perf_counter()
+        state, hist = train(model, sgd(c["lr"]), iter(batches[:rounds]), tcfg, M,
+                            component_lr=server_scaled(M), log=lambda _: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(torch)
+        tally = moe_forward.tally
+    finally:
+        moe_forward.tally = None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [e["loss"] for e in hist]
+    if len(hist) != rounds or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{key}: losses {losses}")
+    want = _lm_launches_per_round(cfg, M)
+    leaves = len(tree_leaves(state.params))
+    if not (all(counts[k] == want[k] * rounds for k in ("k2", "k2_bidir", "k2_cross"))
+            and counts["k2"] > 0 and counts["k2_plain"] == 0
+            and counts["k1"] == rounds and counts["k1_leaves"] == leaves * rounds
+            and counts["k1_single"] == 0 and counts["k1_plain"] == 0):
+        raise AssertionError(f"{key}: counts {counts}, want per round {want} and "
+                             f"K1 {leaves} leaves x {rounds} in {rounds} launches, "
+                             f"no plain forward")
+    times = [e["time"] for e in hist]
+    res = {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": rounds,
+           "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": sum(x.numel() for x in tree_leaves(state.params)),
+           "losses": losses,
+           "s_per_round": [times[0]] + [b - a for a, b in zip(times, times[1:])],
+           "peak_mem_gib": peak, "phase_s": wall, "counts": counts,
+           "launches_per_round": want, "k1_leaves": leaves}
+    if tally:
+        kept, routed = torch.stack(tally).sum(0).tolist()
+        res["moe_rows_kept"], res["moe_rows_routed"] = kept, routed
+        res["dropped_share"] = 1.0 - kept / routed
+    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
+        lr=c["lr"], component_lr=server_scaled(M)))
+    state, res["profile"] = _profile_round(torch, rf, state,
+                                           stage_batch(batches[rounds], dev),
+                                           full_schedule(M, 1))
+    del state, batches
+    return res
+
+
+def zoo_parity_phase(torch):
+    """The smoke configs of ZOO_PARITY_ARCHS in f32: 3 masked mtsl rounds on
+    the card (K2 in every mode, K1) against the CPU (plain versions) from
+    one initial tree and one batch stream; then two seeded card runs of the
+    MoE archs against each other (deterministic algorithms on)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mtsl import init_state
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+
+    out = {}
+    for arch in ZOO_PARITY_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        M = cfg.num_clients
+        init = init_state(build_model(cfg), torch.Generator().manual_seed(4), M)
+        batches = _zoo_batches(cfg, M, 4, 64, 3, 4, cfg.vocab_size, beta=0.5)
+        _reset_counts(torch)
+        gpu, mg = _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)
+        counts = _read_counts(torch)
+        cpu, mc = _lm_parity_run(torch, arch, "cpu", init, batches, 3, 4)
+        for r, (a, b) in enumerate(zip(mg, mc)):
+            if not abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]):
+                raise AssertionError(f"fparity {arch} round {r + 1}: card {a} vs CPU {b}")
+        cpu_leaves = dict(tree_leaves_with_path(cpu.params))
+        err, leaf = max(((x.detach().cpu() - cpu_leaves[k].detach()).abs().max().item(), k)
+                        for k, x in tree_leaves_with_path(gpu.params))
+        if not err <= 1e-4:
+            raise AssertionError(f"fparity {arch}: card vs CPU params differ by "
+                                 f"{err} at {leaf}")
+        want = _lm_launches_per_round(cfg, M)
+        if not (all(counts[k] == 3 * want[k] for k in ("k2", "k2_bidir", "k2_cross"))
+                and counts["k2"] > 0 and counts["k2_plain"] == 0 and counts["k1"] == 3):
+            raise AssertionError(f"fparity {arch}: counts {counts}, want {want} x 3")
+        res = {"card": mg, "cpu": mc, "max_param_abs_diff": err, "worst_leaf": leaf,
+               "counts": counts}
+        if cfg.family == "moe":
+            with _deterministic(torch) as nondet:
+                finals = [[x.detach().clone() for x in tree_leaves(
+                    _lm_parity_run(torch, arch, "cuda", init, batches, 3, 4)[0].params)]
+                    for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*finals)):
+                raise AssertionError(f"fparity {arch}: two seeded card runs differ")
+            res["repeat_bit_equal"] = True
+            res["ops_without_deterministic_algorithm"] = nondet
+        out[arch] = res
     return out
 
 
@@ -1786,8 +2046,12 @@ def _baseline_card_vs_cpu(torch, name, model, M, hp, init, stream,
     per_round, gpu_counts, failures = [], {}, []
     for r, (batch, sched) in enumerate(stream):
         _reset_counts(torch)
-        gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
-        torch.cuda.synchronize()
+        with _deterministic(torch) as nondet:
+            gpu, mg = rf_gpu(gpu, stage_batch(batch, "cuda"), sched)
+            torch.cuda.synchronize()
+        if nondet:
+            failures.append(f"round {r + 1}: card ops without a deterministic "
+                            f"algorithm: {nondet}")
         for k, v in _read_counts(torch).items():
             gpu_counts[k] = gpu_counts.get(k, 0) + v
         cpu, mc = rf_cpu(cpu, stage_batch(batch, "cpu"), sched)
@@ -2099,7 +2363,7 @@ def lm_baselines_phase(torch, dev):
 
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
-          "lm-baselines")
+          "lm-baselines", "encdec", "moe", "vlm", "fparity")
 
 
 def _phases_wanted(argv):
@@ -2248,11 +2512,29 @@ def main() -> int:
                   f"full config, {LM_BASELINES['rounds']} rounds", flush=True)
             report["lm_baselines"] = lm_baselines_phase(torch, dev)
             print("LM_BASELINES " + json.dumps(report["lm_baselines"]), flush=True)
+            torch.cuda.empty_cache()
+
+        for key in ("encdec", "moe", "vlm"):
+            if want(key):
+                c = ZOO_RUNS[key]
+                print(f"[{key}] {c['arch']} full width, "
+                      f"{c['num_layers'] or 'all'} layers, M={c['M']}, b={c['b']}, "
+                      f"S={c['S']}, SGD, {c['rounds']} rounds", flush=True)
+                report[key] = zoo_phase(torch, dev, key)
+                print(f"{key.upper()} " + json.dumps(report[key]), flush=True)
+                torch.cuda.empty_cache()
+
+        if want("fparity"):
+            print(f"[fparity] smoke {', '.join(ZOO_PARITY_ARCHS)}: card == CPU",
+                  flush=True)
+            report["fparity"] = zoo_parity_phase(torch)
+            print("FPARITY " + json.dumps(report["fparity"]), flush=True)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")
     if want.partial:  # a subset of the phases: no result line
-        print(f"chip_smoke: phases {sorted(want.only)} passed", flush=True)
+        print(f"chip_smoke: phases {sorted(want.only)} passed in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return 0
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2264,6 +2546,7 @@ def main() -> int:
     lm_counts = report["lm_train"]["counts"]
     k2 = dict(K2, launches=lm_counts["k2"], **{key: k2_cases[0][key] for key in keys})
     k3 = dict(K3, launches=lm_counts["k3"], **{key: k3_cases[0][key] for key in keys})
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [k4, k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """MTSL train/eval step builders, the paper's Alg. 1 (port of
-`repro.core.mtsl`, its dense path, for the classifier families and the
-decoder LMs: `family` "dense" / "ssm" / "hybrid").
+`repro.core.mtsl`, its dense path, for the classifier families and every
+LM family: "dense", "moe", "ssm", "hybrid", "vlm" and "encdec").
 
 One round:
   * the client towers run mapped over the leading client axis (private
@@ -112,25 +112,25 @@ def _towers_fn(model: Model, num_clients: int) -> Callable:
     return towers_fwd
 
 
-def _check_family(cfg):
-    if cfg.family not in ("mlp", "resnet", "dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the mtsl round of family {cfg.family!r} is not ported yet")
-
-
 def make_loss_fn(model: Model, num_clients: int) -> Callable:
     """loss_fn(params, batch, participation=None, sample_mask=None,
     sample_denom=None) -> (loss, metrics).
 
     batch: {"image": [M, b, ...], "label": [M, b]} (classifiers; metrics
-    loss, per_task, acc, aux) or {"tokens": [M, b, S]} (LMs: next-token
-    CE; metrics loss, per_task, aux) on the params' device.
-    Loss = sum over tasks of per-task mean loss (paper Eq. 2). An optional
+    loss, per_task, acc, aux) or {"tokens": [M, b, S]} (+ "vis" for the
+    VLM, + "frames" for the encoder-decoder; LMs: next-token CE; metrics
+    loss, per_task, aux) on the params' device.
+    Loss = sum over tasks of per-task mean loss (paper Eq. 2) + the
+    server's auxiliary loss (MoE router balance). An optional
     `participation` mask [M] of {0,1} weights the per-task sum AND stops
-    gradient through masked-out clients' smashed activations, so a
-    masked-out client's tower receives exactly zero gradient and the
-    server sees only participants' task gradients. All-ones is
-    bit-identical to no mask.
+    gradient through masked-out clients' smashed activations (the float
+    leaves; integer leaves such as the encoder-decoder's tokens pass
+    through), so a masked-out client's tower receives exactly zero
+    gradient and the server sees only participants' task gradients.
+    The reference's documented limitation holds here too: the MoE aux
+    loss is taken over ALL clients' smashed tokens, so non-participants'
+    tokens still shape its value and its gradient into the server's
+    parameters. All-ones is bit-identical to no mask.
 
     `sample_mask` ([M, b] {0,1}, capability-aware batch sizing) makes
     client m's per-task loss the mean over its first sizes[m] samples;
@@ -140,7 +140,6 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
     denominator either)."""
     cfg = model.cfg
     M = num_clients
-    _check_family(cfg)
     is_classifier = _is_classifier(cfg)
     towers_fwd = _towers_fn(model, M)
 
@@ -154,7 +153,7 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
             smashed = tree_map(
                 lambda s: torch.where(
                     (participation > 0).reshape((M,) + (1,) * (s.ndim - 1)),
-                    s, s.detach()),
+                    s, s.detach()) if s.is_floating_point() else s,
                 smashed)
         # --- smashed-data upload: fold the client dim into the batch
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
@@ -311,7 +310,6 @@ def build_eval_step(model: Model, num_clients: int) -> Callable:
     tasks}; the LMs' next-token loss, {"per_task_loss": [M], "loss": sum
     over tasks}."""
     M = num_clients
-    _check_family(model.cfg)
     is_classifier = _is_classifier(model.cfg)
     towers_fwd = _towers_fn(model, M)
 

@@ -1,6 +1,8 @@
-// Flash attention for Hopper (sm_90a): the forward of causal /
-// sliding-window grouped-query self-attention over whole sequences, with an
-// online softmax, as the training forward runs it.
+// Flash attention for Hopper (sm_90a): the forward of grouped-query
+// attention over whole sequences, with an online softmax, as the training
+// forward runs it: causal / sliding-window self-attention, non-causal
+// self-attention (encoder blocks) and cross attention (keys of length Sk
+// from another sequence).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention_fwd
@@ -38,7 +40,10 @@
 //    with the 128-byte swizzle; the ragged S edge and the columns past D
 //    arrive as zeros), each on an mbarrier; the consumers free K and V
 //    stages through two more. S = Q K^T is wgmma m64n128k16 (m64n64k16 at
-//    BK = 64) with both operands in shared memory, ceil(D / 16) k-steps.
+//    BK = 64) with both operands in shared memory, DP / 16 k-steps in
+//    straight-line code (the columns past D are TMA's zeros and add 0; a
+//    loop over ceil(D / 16) steps measured slower: 0.1838 against 0.1787 ms
+//    at zamba2's shape, chip_smoke.py's k2 phase on an H100).
 //    The masks (only on tiles that cross the diagonal, the window edge or
 //    Sk) and the online softmax (exp2, log2(e) folded into the scale) run
 //    on the accumulator fragment in registers, each row's max and sum a
@@ -52,9 +57,10 @@
 //    in flight (two sets of P registers), and the two warpgroups take turns
 //    to issue their S (two named barriers), so the tensor cores work under
 //    the softmax. The heaviest causal query tiles are launched first. Tiles
-//    per D (D padded to whole 64-column blocks, DP): BK = 128 key rows at
-//    DP = 128 (the path's), 64 otherwise (above, O's registers grow with
-//    DP), chosen by the wrapper (ops.py::tile_config). ptxas pipelines the
+//    per D (D padded to whole 64-column blocks, DP): BK = 128 key rows up
+//    to DP = 128 (zamba2's D = 112, whisper-tiny's 64), 64 above (there
+//    O's registers grow with DP), chosen by the wrapper
+//    (ops.py::tile_config). ptxas pipelines the
 //    wgmma only if no branch around one looks divergent (the warp index is
 //    broadcast, every mbarrier wait loops inside its PTX, tiles no row sees
 //    are masked rather than skipped) and no register of one in flight is
@@ -66,9 +72,13 @@
 //    scoring 16 keys of its row and accumulating a quarter of the row's D
 //    outputs in registers.
 // Not yet: the grid is not persistent (a block's prologue and epilogue do
-// not overlap another tile's products). At DP = 64 (D <= 64, on no main
-// path) ptxas reuses the descriptors' registers under a wgmma in flight
-// and serialises the products (ptxas reports C7513): right, but slow.
+// not overlap another tile's products). At DP = 64 (whisper-tiny's D = 64)
+// ptxas still serialises the products (it reports C7513: an instruction
+// that is not a wgmma defines an input register of one in flight, and the
+// SASS waits after every wgmma); the straight-line S and the 128-key tiles
+// took its encoder's shape from 0.1519 to 0.1298 ms all the same (k2
+// phase), and fencing the other set of P registers serialised every
+// instantiation instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -259,8 +269,7 @@ struct Rows {
 template <class C, int BK>
 __device__ __forceinline__ void tc_issue_s(float (&sc)[BK / 64][32], uint32_t qa,
                                            uint32_t sK, uint32_t k_full, int t,
-                                           int t_lo, int ksteps, int wg,
-                                           int ntiles) {
+                                           int t_lo, int wg, int ntiles) {
   const int s = t % C::kStages, u = t / C::kStages;
   hopper::mbar_wait(k_full + 8 * s, u & 1);
 #pragma unroll
@@ -272,7 +281,8 @@ __device__ __forceinline__ void tc_issue_s(float (&sc)[BK / 64][32], uint32_t qa
   hopper::named_bar_sync(1 + wg, 256);
   hopper::wgmma_fence();
   const uint32_t kt = sK + s * C::kTileBytes;
-  for (int kk = 0; kk < ksteps; ++kk) {
+#pragma unroll
+  for (int kk = 0; kk < C::kChunks * 4; ++kk) {  // DP / 16 k16 steps
     const uint32_t off = (kk & 3) * 32;  // 16 columns = 32 bytes
     const uint64_t da =
         hopper::sw128_desc(qa + (kk >> 2) * C::kBq * 128 + off, 16, 1024);
@@ -484,7 +494,6 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int c4 = lane & 3;
     const int w_lo = q0 + 64 * wg, w_hi = w_lo + 63;
     const int r0 = w_lo + 16 * (warp & 3) + (lane >> 2);
-    const int ksteps = (D + 15) / 16;  // k16 steps of Q K^T (D padded to 16)
     const uint32_t qa = sQ + wg * 64 * 128;
 
     float o[C::kChunks][32];
@@ -509,7 +518,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     float alpha0, alpha1;
     const Rows rows{r0, c4, w_lo, w_hi, Sk, causal, window, scale_log2};
     if (ntiles > 0) {
-      tc_issue_s<C, BK>(sc, qa, sK, k_full, 0, t_lo, ksteps, wg, ntiles);
+      tc_issue_s<C, BK>(sc, qa, sK, k_full, 0, t_lo, wg, ntiles);
       hopper::wgmma_wait<0>();
 #pragma unroll
       for (int nb = 0; nb < BK / 64; ++nb) hopper::fence_regs(sc[nb]);
@@ -520,7 +529,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int t = 1; t < ntiles; ++t) {
         const int s = t % C::kStages, sp = (t - 1) % C::kStages;
         fence_operands<C::kChunks, BK>(o, pf_prev);
-        tc_issue_s<C, BK>(sc, qa, sK, k_full, t, t_lo, ksteps, wg, ntiles);
+        tc_issue_s<C, BK>(sc, qa, sK, k_full, t, t_lo, wg, ntiles);
         tc_issue_pv<C, BK>(o, pf_prev, sV, v_full, t - 1);
         hopper::wgmma_wait<1>();  // S of tile t
 #pragma unroll
@@ -608,7 +617,7 @@ int launch_tc(int dp, int bk, const void* q, const void* k, const void* v,
   if (dp == DPV && bk == BKV)                                                 \
     return launch_tc_cfg<DPV, BKV>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, \
                                    window, st, stream);
-  REPRO_FA_CFG(64, 64)
+  REPRO_FA_CFG(64, 128)
   REPRO_FA_CFG(128, 128)
   REPRO_FA_CFG(192, 64)
   REPRO_FA_CFG(256, 64)

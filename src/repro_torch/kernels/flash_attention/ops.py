@@ -1,5 +1,9 @@
 """Public wrapper of the flash-attention kernel (`csrc/flash_attention.cu`,
-K2): the training forward's causal / sliding-window self-attention.
+K2): every attention of the training forward. Causal / sliding-window
+self-attention, non-causal self-attention (encoder blocks) and cross
+attention (keys from another sequence, no mask but their end) are one
+function to the kernel, which masks key j of row i iff j >= Sk or, when causal, j > i or,
+with a window, i - j >= window.
 
 Model code calls flash_attention(q, k, v, causal, window) in the model's
 `[B, S, H, D]` layout, as in the reference's
@@ -10,6 +14,11 @@ the backward recomputes through the plain version and differentiates it,
 as the reference's custom_vjp does (`ops.py:41-45`). The kernel reads q,
 k and v through their strides, so unlike the reference wrapper nothing is
 transposed.
+
+Launch counters: `flash_attention.launches` counts every launch;
+`.launches_cross` the ones the caller made as cross attention
+(`cross=True`) and `.launches_bidir` the other non-causal ones (the
+causal ones are the rest).
 """
 from __future__ import annotations
 
@@ -31,15 +40,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def tile_config(D: int) -> tuple:
     """(DP, BK) of the bf16 kernel for head dim D: D padded to whole
-    64-column (128-byte) blocks, and the key rows per tile: 128 at
-    DP = 128 (zamba2's D = 112), 64 otherwise. Above 128, O's registers
-    (DP / 2 per thread) leave room for a 64-key score tile only; at 64,
-    the 128-key tile measured no faster. The source instantiates exactly
-    these pairs (launch_tc)."""
+    64-column (128-byte) blocks, and the key rows per tile: 128 up to
+    DP = 128 (zamba2's D = 112, whisper-tiny's D = 64), 64 above, where
+    O's registers (DP / 2 per thread) leave room for a 64-key score tile
+    only; at DP = 64 the 128-key tile is the faster (with the
+    straight-line S product, whisper-tiny's encoder shape went from 0.1519
+    to 0.1298 ms on an H100, chip_smoke.py's k2 phase). The source
+    instantiates exactly these pairs (launch_tc)."""
     if not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: no tiles for D={D}")
     dp = -(-D // 64) * 64
-    return dp, (128 if dp == 128 else 64)
+    return dp, (128 if dp <= 128 else 64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,7 +102,7 @@ def check_layout(q, k, v, window):
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
 
 
-def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, window: int, cross: bool) -> torch.Tensor:
     _check(q, k, v, window)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -109,16 +120,20 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
         msg = lib.repro_flash_attention_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({rc})")
     flash_attention.launches += 1
+    if cross:
+        flash_attention.launches_cross += 1
+    elif not causal:
+        flash_attention.launches_bidir += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, cross):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
         if q.is_cuda:
-            return _launch(q, k, v, causal, window)
+            return _launch(q, k, v, causal, window, cross)
         return mha_reference(q, k, v, causal=causal, window=window)
 
     @staticmethod
@@ -128,19 +143,26 @@ class _FlashAttention(torch.autograd.Function):
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = mha_grouped(*qkv, causal=ctx.causal, window=ctx.window)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    cross: bool = False) -> torch.Tensor:
     """q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
     dtype: softmax(q k^T / sqrt(D)) v with the causal and window masks and
     GQA (kv head h // (Hq / Hkv)). On CUDA a row with no visible key gives
     0, as the TPU kernel does; the plain version averages over the masked
-    keys (the training forward never has such a row)."""
-    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+    keys (the training forward never has such a row). `cross` says that k
+    and v come from another sequence: the launch counts as cross attention,
+    which takes no causal mask."""
+    if cross and causal:
+        raise ValueError("flash_attention: cross attention takes no causal mask")
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window), bool(cross))
 
 
-# kernel launches (the plain CPU path is not counted): a run reads it to
-# show that its attention went through the kernel
+# kernel launches (the plain CPU path is not counted): a run reads them to
+# show that its attention went through the kernel, and in which mode
 flash_attention.launches = 0
+flash_attention.launches_bidir = 0
+flash_attention.launches_cross = 0

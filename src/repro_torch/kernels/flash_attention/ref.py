@@ -1,9 +1,9 @@
-"""Plain-torch attention oracle (grouped-query, causal / sliding-window),
-the port of `repro.kernels.flash_attention.ref` lines 14-81. Prefill and
-chunked extend use it, as the reference does. It is also the plain version
-of the flash-attention kernel (K2, `csrc/flash_attention.cu`), the path of
-CPU tensors in the training forward, and the function that K2's backward
-differentiates (through `mha_grouped`, uncounted).
+"""Plain-torch attention oracle (grouped-query, causal / sliding-window /
+non-causal / cross), the port of `repro.kernels.flash_attention.ref`.
+Prefill and chunked extend use it, as the reference does. It is also the
+plain version of the flash-attention kernel (K2, `csrc/flash_attention.cu`),
+the path of CPU tensors in the training forward, and the function that K2's
+backward differentiates (through `mha_grouped`, uncounted).
 """
 from __future__ import annotations
 

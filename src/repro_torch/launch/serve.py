@@ -218,6 +218,9 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
+    if model.tower_prefill is None:
+        raise SystemExit(f"--arch {args.arch}: serving of the {cfg.family} "
+                         "family is not ported yet")
     M = args.num_clients or cfg.num_clients
     b = args.batch_per_client
     params = init_params(model, M, args.seed, dev)

@@ -38,7 +38,10 @@ at `--seq-len` (default 256); the server LR multiplier is
 `--server-lr-scale` (default 1/M, the launcher's `server_scaled` policy;
 `train()` without a component LR falls back to 2/M). On CUDA, f32 matmuls
 and convolutions run in full f32 (TF32 off), as the reference computes
-them. Not ported yet: the MoE, VLM and encoder-decoder archs, `--mesh`,
+them. The VLM and encoder-decoder archs are refused: their batches carry
+vision features or audio frames beside the tokens, which the LM source
+does not draw (the reference launcher cannot train them either; the
+registry's round takes such batches). Not ported yet: `--mesh`,
 `--client-chunk`, `--async` and `--sync-every` (the event engine and its
 multi-server replica sync), `--data cached`, `--checkpoint`,
 `--vectorized-data` and the prefetch pipeline (`--prefetch`; the loop is
@@ -175,10 +178,12 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     smoke = (not args.arch.startswith("paper-")) if args.smoke is None else args.smoke
     cfg = get_config(args.arch, smoke=smoke)
-    if cfg.family not in ("mlp", "resnet", "dense", "ssm", "hybrid"):
-        raise SystemExit(f"--arch {args.arch} ({cfg.family}): only the paper "
-                         "classifiers' and the dense / ssm / hybrid LMs' "
-                         "training is ported yet")
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit(f"--arch {args.arch} ({cfg.family}): its batches carry "
+                         f"{'vis' if cfg.family == 'vlm' else 'frames'} beside the "
+                         "tokens, which the LM source does not draw (as in the "
+                         "reference launcher); train it through the registry's "
+                         "round with such a batch")
     is_classifier = cfg.family in ("mlp", "resnet")
     if args.num_clients is not None:
         cfg = cfg.with_updates(num_clients=args.num_clients)

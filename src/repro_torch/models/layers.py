@@ -16,15 +16,18 @@ Two parameter trees, asked for with `serving=`:
 The apply functions cast every matmul weight to the activation's dtype,
 which is a no-op on a serving tree.
 
-Attention execution modes (self-attention only):
-  - forward: the training path, causal (+ sliding window) over the whole
-             sequence, always through the flash-attention wrapper (K2:
-             the CUDA kernel on CUDA tensors)
+Attention execution modes:
+  - forward: the training path over the whole sequence: causal self-
+             attention (+ sliding window), non-causal self-attention
+             (encoder blocks) or cross attention to `kv_src` (no mask, no
+             rope), always through the flash-attention wrapper (K2: the
+             CUDA kernel on CUDA tensors)
   - prefill: full sequence, causal (+ sliding window), returns a KV cache
   - decode:  one token per row against the row's cache slot, per-row
              positions; always through the flash-decode wrapper (K4)
   - extend:  a chunk of C tokens per row appended to a partial cache
-Decode and extend write K/V into the cache IN PLACE (the reference returns
+Prefill, decode and extend are self-attention only. Decode and extend
+write K/V into the cache IN PLACE (the reference returns
 a new cache); decode takes an optional per-row `write` mask so frozen rows
 keep their cache, as the reference's where-masked update does.
 """
@@ -133,6 +136,9 @@ def logits_f32(x, w):
 
 
 def attn_params(gen, cfg: ModelConfig, serving: bool = False):
+    """Self- and cross-attention params alike: a cross block's keys and
+    values are projected from d_model inputs (the VLM's vision features
+    are projected upstream), as in the reference."""
     d, Hq, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = weight_dtype(cfg, serving)
     return {
@@ -150,7 +156,11 @@ def _proj(x, w):
     return (x @ w.reshape(d, H * D).to(x.dtype)).reshape(*x.shape[:-1], H, D)
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
+def _project_qkv(p, x, cfg: ModelConfig, positions, kv_src=None):
+    """q from x, k and v from kv_src (cross attention: no rope on either,
+    as the reference) or from x (rope on q and k at `positions`)."""
+    if kv_src is not None:
+        return _proj(x, p["wq"]), _proj(kv_src, p["wk"]), _proj(kv_src, p["wv"])
     q = rope(_proj(x, p["wq"]), positions, cfg.rope_theta)
     k = rope(_proj(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj(x, p["wv"])
@@ -169,23 +179,28 @@ def _no_ring(cfg: ModelConfig):
             "ring KV caches (decode_long_window) are not ported yet")
 
 
-def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0):
-    """Training path: causal self-attention over x [B,S,d] (+ sliding
-    window). Returns the attention output [B,S,d] (residual added by the
-    caller). Always through the flash-attention wrapper (K2): the CUDA
-    kernel on CUDA tensors, mha_reference on CPU tensors. The reference
-    reaches its kernel only under cfg.use_flash_kernel, which is off by
-    default; the port does not read the flag, so that the kernel is the
-    path (both compute one function). Cross attention and
-    attn_impl="chunked" are not ported."""
+def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0, kv_src=None,
+                 causal: bool = True):
+    """Training path over x [B,S,d]: causal self-attention (+ sliding
+    window), non-causal self-attention (causal=False), or cross attention
+    to kv_src [B,Sk,d] (no mask, no rope). Returns the attention output
+    [B,S,d] (residual added by the caller). Always through the
+    flash-attention wrapper (K2): the CUDA kernel on CUDA tensors,
+    mha_reference on CPU tensors. The reference reaches its kernel only for
+    causal self-attention under cfg.use_flash_kernel (off by default) and
+    sends the other calls to mha_reference; the port does not read the
+    flag, so that the kernel is the path (all compute one function: the
+    kernel masks keys at j >= Sk). attn_impl="chunked" is not ported."""
     if cfg.attn_impl != "ref":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported: the port's training "
             "attention is the flash-attention kernel")
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
+    cross = kv_src is not None
     S = x.shape[-2]
-    q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device))
-    out = flash_attention(q, k, v, causal=True, window=window)
+    q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device), kv_src)
+    out = flash_attention(q, k, v, causal=causal and not cross, window=window,
+                          cross=cross)
     return _out_proj(out, p["wo"])
 
 

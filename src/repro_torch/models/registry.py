@@ -7,13 +7,24 @@ Training hooks, for the paper classifiers (`family` "mlp" / "resnet",
     tower_forward(tp, {"image": ...})   -> {"h": smashed}
     server_forward(sp, {"h": ...})      -> (logits [B, C], aux loss)
 
-Training hooks, for the decoder LMs (`family` "dense" / "ssm" /
-"hybrid": embedding + bottom `split_layers` blocks in the tower; the
-other blocks + final norm + head on the server), on `[b, S]` tokens of
-one client:
+Training hooks, for the decoder LMs (`family` "dense" / "moe" / "ssm" /
+"hybrid" / "vlm": embedding + bottom `split_layers` blocks in the tower;
+the other blocks + final norm + head on the server), on `[b, S]` tokens
+of one client:
 
     tower_forward(tp, {"tokens": ...})  -> {"h": [b, S, d]}
     server_forward(sp, {"h": ...})      -> (logits [B, S, V] f32, aux loss)
+
+The VLM's tower also projects the client's vision features
+(`{"vis": [b, Sv, vis_dim]}`, the stub frontend) to d_model and uploads
+them beside h as `"vis_proj"`; every `cross` layer, in the tower or on the
+server, attends to them. The encoder-decoder (`family` "encdec", whisper)
+puts the bottom `split_layers` encoder blocks in the tower, over
+`{"frames": [b, Se, d], "tokens": [b, S]}`, and uploads `{"h", "tokens"}`
+(MTSL uploads the labels); the server runs the other encoder blocks, the
+encoder norm, and the decoder (embedding, `cross` blocks over the encoder's
+output, norm, head). The MoE blocks' aux loss comes back from
+server_forward (the tower's is dropped, as the reference drops it).
 
 Serving hooks, for `family == "dense"`:
 
@@ -26,7 +37,8 @@ Serving hooks, for `family == "dense"`:
 
 In serving, the reference passes and returns `{"h": ...}` smashed dicts
 and new caches; the port passes the activation tensor and updates caches
-in place. Training keeps the reference's `{"h": ...}` dicts.
+in place. Training keeps the reference's `{"h": ...}` dicts. The serving
+of the moe, vlm and encdec families is not ported: their hooks are None.
 
 A decoder's `init_tower(gen, serving=False)` / `init_server(gen,
 serving=False)` give the training tree (every leaf in cfg.param_dtype, as
@@ -61,17 +73,38 @@ class Model(NamedTuple):
     server_extend: Optional[Callable] = None
 
 
-def _decoder_model(cfg: ModelConfig) -> Model:
-    kinds = cfg.layer_kinds
+def stack_kinds(cfg: ModelConfig) -> dict:
+    """{(side, key): block kinds} of every layer stack of an LM: the tree
+    at params[side][key] is a stack over those kinds."""
     split = cfg.split_layers
+    if cfg.family == "encdec":
+        if not 0 < split <= cfg.encoder_layers:
+            raise ValueError(f"split_layers={split} must be in "
+                             f"(0, {cfg.encoder_layers}]")
+        out = {("tower", "blocks"): ("bidir",) * split,
+               ("server", "dec_blocks"): ("cross",) * cfg.num_layers}
+        if cfg.encoder_layers > split:
+            out[("server", "enc_blocks")] = ("bidir",) * (cfg.encoder_layers - split)
+        return out
     if not 0 < split < cfg.num_layers:
         raise ValueError(f"split_layers={split} must be in (0, {cfg.num_layers})")
-    tower_stack = make_stack(cfg, kinds[:split])
-    server_stack = make_stack(cfg, kinds[split:])
+    kinds = cfg.layer_kinds
+    return {("tower", "blocks"): kinds[:split], ("server", "blocks"): kinds[split:]}
+
+
+def _decoder_model(cfg: ModelConfig) -> Model:
+    kinds = stack_kinds(cfg)
+    tower_stack = make_stack(cfg, kinds[("tower", "blocks")])
+    server_stack = make_stack(cfg, kinds[("server", "blocks")])
+    is_vlm = cfg.family == "vlm"
 
     def init_tower(gen, serving: bool = False):
-        return {"embed": L.embedding_params(gen, cfg),
-                "blocks": tower_stack.init(gen, serving)}
+        p = {"embed": L.embedding_params(gen, cfg),
+             "blocks": tower_stack.init(gen, serving)}
+        if is_vlm:
+            p["projector"] = {"w": param(gen, (cfg.vis_dim, cfg.d_model),
+                                         dtype=L.param_dtype(cfg))}
+        return p
 
     def init_server(gen, serving: bool = False):
         return {
@@ -87,11 +120,17 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
     def tower_forward(tp, inputs):
         x = L.embed(tp["embed"], inputs["tokens"], cfg)
-        x, _ = tower_stack.forward(tp["blocks"], x, {})
-        return {"h": x}
+        extras = {}
+        if is_vlm:
+            extras["vis_proj"] = (inputs["vis"].to(x.dtype)
+                                  @ tp["projector"]["w"].to(x.dtype))
+        ctx = {"xattn": extras["vis_proj"]} if is_vlm else {}
+        x, _ = tower_stack.forward(tp["blocks"], x, ctx)
+        return {"h": x, **extras}
 
     def server_forward(sp, smashed):
-        x, aux = server_stack.forward(sp["blocks"], smashed["h"], {})
+        ctx = {"xattn": smashed["vis_proj"]} if is_vlm else {}
+        x, aux = server_stack.forward(sp["blocks"], smashed["h"], ctx)
         return _head(sp, x), aux
 
     def tower_prefill(tp, tokens, max_len):
@@ -122,6 +161,8 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         x = x[:, max(int(n_valid) - 1, 0)][:, None]
         return _head(sp, x)
 
+    if cfg.family in ("moe", "vlm"):  # serving not ported
+        return Model(cfg, init_tower, init_server, tower_forward, server_forward)
     return Model(
         cfg=cfg,
         init_tower=init_tower,
@@ -139,9 +180,55 @@ def _decoder_model(cfg: ModelConfig) -> Model:
     )
 
 
+def _encdec_model(cfg: ModelConfig) -> Model:
+    kinds = stack_kinds(cfg)
+    tower_stack = make_stack(cfg, kinds[("tower", "blocks")])
+    enc_kinds = kinds.get(("server", "enc_blocks"))
+    enc_top_stack = make_stack(cfg, enc_kinds) if enc_kinds else None
+    dec_stack = make_stack(cfg, kinds[("server", "dec_blocks")])
+
+    def init_tower(gen, serving: bool = False):
+        return {"blocks": tower_stack.init(gen, serving)}
+
+    def init_server(gen, serving: bool = False):
+        p = {}
+        if enc_top_stack is not None:
+            p["enc_blocks"] = enc_top_stack.init(gen, serving)
+        p["enc_norm"] = L.rmsnorm_params(gen, cfg.d_model)
+        p["dec_embed"] = L.embedding_params(gen, cfg)
+        p["dec_blocks"] = dec_stack.init(gen, serving)
+        p["norm"] = L.rmsnorm_params(gen, cfg.d_model)
+        p["head"] = {"w": param(gen, (cfg.d_model, cfg.vocab_size),
+                                dtype=L.weight_dtype(cfg, serving))}
+        return p
+
+    def tower_forward(tp, inputs):
+        # frames: [b, Se, d_model] stub frame embeddings; the tokens ride
+        # along in the smashed data (MTSL uploads the labels to the server)
+        x = inputs["frames"].to(L.compute_dtype(cfg))
+        x, _ = tower_stack.forward(tp["blocks"], x, {})
+        return {"h": x, "tokens": inputs["tokens"]}
+
+    def _encode_top(sp, h):
+        if enc_top_stack is not None:
+            h, _ = enc_top_stack.forward(sp["enc_blocks"], h, {})
+        return L.rmsnorm(sp["enc_norm"], h, cfg.norm_eps)
+
+    def server_forward(sp, smashed):
+        enc_out = _encode_top(sp, smashed["h"])
+        y = L.embed(sp["dec_embed"], smashed["tokens"], cfg)
+        y, aux = dec_stack.forward(sp["dec_blocks"], y, {"xattn": enc_out})
+        y = L.rmsnorm(sp["norm"], y, cfg.norm_eps)
+        return L.logits_f32(y, sp["head"]["w"]), aux
+
+    return Model(cfg, init_tower, init_server, tower_forward, server_forward)
+
+
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("dense", "ssm", "hybrid"):
+    if cfg.family in ("dense", "moe", "ssm", "hybrid", "vlm"):
         return _decoder_model(cfg)
+    if cfg.family == "encdec":
+        return _encdec_model(cfg)
     if cfg.family == "mlp":
         from repro_torch.models.classifiers import mlp_model
 
@@ -150,4 +237,4 @@ def build_model(cfg: ModelConfig) -> Model:
         from repro_torch.models.classifiers import resnet_model
 
         return resnet_model(cfg)
-    raise ValueError(f"family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,6 +1,12 @@
-"""Layer-stack assembly (port of `repro.models.stacks` for the `full`,
-`swa`, `mamba` and `shared_attn` kinds): blocks -> repeating segments ->
-a Python loop.
+"""Layer-stack assembly (port of `repro.models.stacks`): blocks ->
+repeating segments -> a Python loop.
+
+Block kinds: `full`, `swa` (causal self-attention + MLP), `bidir`
+(non-causal self-attention + MLP: the encoder blocks), `cross` (causal
+self-attention, cross attention to ctx["xattn"], MLP: the VLM's image
+layers and the encoder-decoder's decoder), `moe` (causal self-attention +
+the MoE layer), `dense_moe_lead` (an MoE model's leading dense layers:
+`full` at cfg.d_ff), `mamba` and `shared_attn`.
 
 The reference stacks the parameters of a segment that repeats (with
 `cfg.scan_layers`) along a leading layer axis and runs it under
@@ -10,13 +16,18 @@ and loops over it; a segment that does not repeat is one unit dict, as in
 the reference. Caches mirror the parameter tree and are updated in place
 by decode/extend.
 
+Each block's training forward returns (x, aux): aux is the MoE block's
+router balance loss times cfg.router_aux_weight, 0.0 for every other kind.
+The stack sums aux over its blocks, as the reference's scan carries it.
+
 The training forward rematerialises per segment unit, as the reference's
 `_remat` wraps each unit (the scan body): `cfg.remat` "block" runs each
 unit under `torch.utils.checkpoint` (non-reentrant: only the unit's input
-is kept, and its backward reruns the unit's forward); "full" shares that
-code, since the reference's `nothing_saveable` policy also keeps only the
-unit's inputs; "none" is a plain call. Without `cfg.scan_layers` the whole
-stack is one unit, as in the reference.
+is kept, and its backward reruns the unit's forward, which returns the
+unit's aux beside x); "full" shares that code, since the reference's
+`nothing_saveable` policy also keeps only the unit's inputs; "none" is a
+plain call. Without `cfg.scan_layers` the whole stack is one unit, as in
+the reference.
 
 Zamba2's *shared* attention block is loop-invariant: its parameters live
 at the stack level ("shared") and reach each `shared_attn` layer through
@@ -25,8 +36,8 @@ ctx["shared"].
 Serving (prefill / decode / extend / caches) is ported for the `full` and
 `swa` kinds only.
 
-ctx keys: "shared" (forward), "max_len" (prefill), "pos" and optional
-"write" (decode), "start" (extend).
+ctx keys: "shared" and "xattn" (forward), "max_len" (prefill), "pos" and
+optional "write" (decode), "start" (extend).
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_forward, moe_params
 from repro_torch.models.ssm import mamba_forward, mamba_params
 
 PyTree = Any
@@ -44,7 +56,7 @@ PyTree = Any
 
 class Block(NamedTuple):
     init: Callable  # (gen, serving) -> params
-    forward: Callable  # (p, x, ctx) -> x (training)
+    forward: Callable  # (p, x, ctx) -> (x, aux) (training)
     # serving; None for a kind whose serving is not ported
     prefill: Optional[Callable] = None  # (p, x, ctx) -> (x, cache)
     decode: Optional[Callable] = None  # (p, x_t, cache, ctx) -> x_t (in place)
@@ -52,14 +64,17 @@ class Block(NamedTuple):
     extend: Optional[Callable] = None  # (p, x_c, cache, ctx) -> x_c (in place)
 
 
-def _attn_mlp_block(cfg: ModelConfig, window: int) -> Block:
+def _attn_mlp_block(cfg: ModelConfig, window: int, causal: bool = True) -> Block:
     def init(gen, serving):
         return {"attn": L.attn_params(gen, cfg, serving),
                 "mlp": L.mlp_params(gen, cfg, serving=serving)}
 
     def forward(p, x, ctx):
-        x = x + L.attn_forward(p["attn"], x, cfg, window=window)
-        return x + L.mlp_forward(p["mlp"], x, cfg)
+        x = x + L.attn_forward(p["attn"], x, cfg, window=window, causal=causal)
+        return x + L.mlp_forward(p["mlp"], x, cfg), 0.0
+
+    if not causal:  # the encoder blocks' serving is not ported
+        return Block(init, forward)
 
     def prefill(p, x, ctx):
         a, cache = L.attn_prefill(p["attn"], x, cfg, window=window,
@@ -83,12 +98,42 @@ def _attn_mlp_block(cfg: ModelConfig, window: int) -> Block:
     return Block(init, forward, prefill, decode, init_cache, extend)
 
 
+def _cross_block(cfg: ModelConfig) -> Block:
+    """Causal self-attention + cross attention to ctx["xattn"] + MLP (the
+    VLM's image layers, the encoder-decoder's decoder blocks)."""
+
+    def init(gen, serving):
+        return {"attn": L.attn_params(gen, cfg, serving),
+                "xattn": L.attn_params(gen, cfg, serving),
+                "mlp": L.mlp_params(gen, cfg, serving=serving)}
+
+    def forward(p, x, ctx):
+        x = x + L.attn_forward(p["attn"], x, cfg)
+        x = x + L.attn_forward(p["xattn"], x, cfg, kv_src=ctx["xattn"])
+        return x + L.mlp_forward(p["mlp"], x, cfg), 0.0
+
+    return Block(init, forward)
+
+
+def _moe_block(cfg: ModelConfig) -> Block:
+    def init(gen, serving):
+        return {"attn": L.attn_params(gen, cfg, serving),
+                "moe": moe_params(gen, cfg)}
+
+    def forward(p, x, ctx):
+        x = x + L.attn_forward(p["attn"], x, cfg)
+        y, aux = moe_forward(p["moe"], x, cfg)
+        return x + y, aux * cfg.router_aux_weight
+
+    return Block(init, forward)
+
+
 def _mamba_block(cfg: ModelConfig) -> Block:
     def init(gen, serving):
         return {"mamba": mamba_params(gen, cfg)}
 
     def forward(p, x, ctx):
-        return x + mamba_forward(p["mamba"], x, cfg)
+        return x + mamba_forward(p["mamba"], x, cfg), 0.0
 
     return Block(init, forward)
 
@@ -108,15 +153,21 @@ def _shared_attn_block(cfg: ModelConfig) -> Block:
 
 
 def make_block(cfg: ModelConfig, kind: str) -> Block:
-    if kind == "full":
+    if kind in ("full", "dense_moe_lead"):
         return _attn_mlp_block(cfg, window=0)
     if kind == "swa":
         return _attn_mlp_block(cfg, window=cfg.sliding_window)
+    if kind == "bidir":  # encoder blocks (whisper): non-causal attention
+        return _attn_mlp_block(cfg, window=0, causal=False)
+    if kind == "cross":
+        return _cross_block(cfg)
+    if kind == "moe":
+        return _moe_block(cfg)
     if kind == "mamba":
         return _mamba_block(cfg)
     if kind == "shared_attn":
         return _shared_attn_block(cfg)
-    raise ValueError(f"block kind {kind!r} is not ported yet")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def segment_layers(kinds: Sequence[str], max_unit: int = 12):
@@ -206,17 +257,22 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
     def forward(p, x, ctx):
         if has_shared:
             ctx = dict(ctx, shared=p["shared"])
+        aux_total = 0.0
         for si, blocks in enumerate(seg_blocks):
             def unit_fwd(px, x, blocks=blocks):
+                aux = 0.0
                 for j, b in enumerate(blocks):
-                    x = b.forward(px[str(j)], x, ctx)
-                return x
+                    x, a = b.forward(px[str(j)], x, ctx)
+                    aux = aux + a
+                return x, aux
 
             unit_fwd = _remat(unit_fwd, cfg)
             for px in _units(p, si):
-                x = unit_fwd(px, x)
-        # the dense, ssm and hybrid kinds add no auxiliary loss
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, a = unit_fwd(px, x)
+                aux_total = aux_total + a
+        if not torch.is_tensor(aux_total):  # no MoE block: a 0.0 of f32
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux_total
 
     def prefill(p, x, ctx):
         caches = {}

@@ -13,18 +13,21 @@ gives them):
   fedem         (components [K..] of {"tower", "server"}, pi [M, K] f32)
 
 For the paper classifiers (`family` "mlp" / "resnet") keys and layouts
-are kept as they are, every leaf in f32 (their `cfg.dtype`). For the
-decoder models (`family` "dense" / "ssm" / "hybrid"):
+are kept as they are, every leaf in f32 (their `cfg.dtype`). For the LMs
+(every other family):
 
-  * keys are kept, the stack-level `shared` block of a hybrid stack
-    included;
+  * keys are kept: the stack-level `shared` block of a hybrid stack, the
+    VLM tower's `projector`, the MoE leaves (`router`, the `[E, ...]`
+    expert stacks, `shared` experts) and the encoder-decoder's server keys
+    (`enc_blocks`, `enc_norm`, `dec_embed`, `dec_blocks`) included;
   * a `seg{i}` segment that the reference stacks along a layer axis (a
     repeating segment under `cfg.scan_layers`; the axis follows the leading
     client, cluster or component axis of a stacked tree) becomes a list
-    with one unit dict per repeat;
+    with one unit dict per repeat (each stack's kinds from
+    `models.registry.stack_kinds`);
   * the result is the training tree (`models/layers.py`): every leaf in
     `cfg.param_dtype`, as the reference holds it, and the Mamba leaves
-    `A_log`, `D` and `dt_bias` in f32.
+    `A_log`, `D` and `dt_bias` and the MoE `router` in f32.
 """
 from __future__ import annotations
 
@@ -35,11 +38,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.registry import stack_kinds
 from repro_torch.models.stacks import stack_segments
 from repro_torch.utils.tree import tree_map
 
 PyTree = Any
-_ALWAYS_F32 = ("A_log", "D", "dt_bias")
+_ALWAYS_F32 = ("A_log", "D", "dt_bias", "router")
 
 
 def convert_tree(tree, device, cfg: ModelConfig, key=None):
@@ -71,24 +75,24 @@ def _blocks(blocks, kinds, axis: int, device, cfg: ModelConfig):
     return out
 
 
-def _tower(tree, axis: int, device, cfg: ModelConfig):
-    """A tower tree; `axis` is the segments' layer axis (1 under a leading
-    client axis, 0 for one unstacked tower)."""
+def _side(tree, side: str, axis: int, device, cfg: ModelConfig):
+    """A tower (`side` "tower") or server tree; `axis` is the segments'
+    layer axis (1 under a leading client, cluster or component axis, 0 for
+    one unstacked tree). Stacks become the port's segment layout, every
+    other subtree is converted as it is."""
     if cfg.family in ("mlp", "resnet"):
         return convert_tree(tree, device, cfg)
-    return {"embed": convert_tree(tree["embed"], device, cfg),
-            "blocks": _blocks(tree["blocks"], cfg.layer_kinds[:cfg.split_layers],
-                              axis, device, cfg)}
+    stacks = {key: kinds for (s, key), kinds in stack_kinds(cfg).items() if s == side}
+    return {k: (_blocks(v, stacks[k], axis, device, cfg) if k in stacks
+                else convert_tree(v, device, cfg)) for k, v in tree.items()}
+
+
+def _tower(tree, axis: int, device, cfg: ModelConfig):
+    return _side(tree, "tower", axis, device, cfg)
 
 
 def _server(tree, axis: int, device, cfg: ModelConfig):
-    """A server tree; `axis` as in `_tower`."""
-    if cfg.family in ("mlp", "resnet"):
-        return convert_tree(tree, device, cfg)
-    return {"blocks": _blocks(tree["blocks"], cfg.layer_kinds[cfg.split_layers:],
-                              axis, device, cfg),
-            "norm": convert_tree(tree["norm"], device, cfg),
-            "head": convert_tree(tree["head"], device, cfg)}
+    return _side(tree, "server", axis, device, cfg)
 
 
 def params_from_jax(tree: PyTree, device, cfg: ModelConfig) -> PyTree:

@@ -12,7 +12,7 @@ from repro_torch.kernels.flash_decode import ops as k4
 
 
 @pytest.mark.parametrize("D,want", [
-    (8, (64, 64)), (24, (64, 64)), (64, (64, 64)), (72, (128, 128)),
+    (8, (64, 128)), (24, (64, 128)), (64, (64, 128)), (72, (128, 128)),
     (112, (128, 128)), (128, (128, 128)), (136, (192, 64)), (192, (192, 64)),
     (200, (256, 64)), (256, (256, 64)),
 ])
@@ -45,6 +45,10 @@ def test_k2_check_layout_takes_what_the_kernel_takes():
     k2.check_layout(*_k2_tensors(D=24, Hq=8, Hkv=2), 100)
     qkv = torch.zeros(2, 33, 3, 4, 112, dtype=torch.bfloat16)  # a fused projection
     k2.check_layout(*qkv.unbind(2), 0)
+    # cross attention: Sq != Sk (whisper's 448 queries over 1500 frames)
+    q, _, _ = _k2_tensors(S=448, Hq=6, Hkv=6, D=64)
+    _, k, v = _k2_tensors(S=1500, Hq=6, Hkv=6, D=64)
+    k2.check_layout(q, k, v, 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "D", "D_odd", "G", "stride",

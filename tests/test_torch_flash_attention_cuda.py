@@ -16,6 +16,13 @@ tile configuration of ops.tile_config), masks and lengths that are not
 tile multiples, with K2's relative L2 limit of 5e-3 beside the elementwise
 one; with GQA 4, D = 24 (padded to a 16-wide k-step), strided views, no
 causal mask, and two launches that must be bit-equal.
+
+Without the causal mask, as the encoder-decoder and the VLM call it:
+non-causal self-attention (whisper-tiny's encoder at D = 64) and cross
+attention with Sq != Sk and a ragged Sk (whisper's 1500 frames,
+llama-3.2-vision's 1601 patches), in bf16 and f32, with the mode counters
+(read from the call's mode, not its shape), bit-equal repeats, and the
+gradients of a cross call.
 """
 import numpy as np
 import pytest
@@ -168,3 +175,80 @@ def test_cuda_row_with_no_visible_key_is_zero():
     assert float(out[:, 4:].abs().max()) == 0.0
     ref = mha_reference(q, k, v, causal=True, window=1)
     torch.testing.assert_close(out[:, :4], ref[:, :4], atol=2e-5, rtol=2e-5)
+
+
+# non-causal self-attention (Sq == Sk) and cross attention (Sq != Sk) as
+# the encoder-decoder and the VLM run them: (B, Sq, Sk, Hq, Hkv, D, dtype)
+NONCAUSAL_CASES = [
+    (2, 300, 300, 6, 6, 64, "bfloat16"),     # whisper-tiny's encoder, DP = 64
+    (2, 1500, 1500, 6, 6, 64, "bfloat16"),   # its 1500 frames (ragged: 23.4 tiles)
+    (4, 448, 1500, 6, 6, 64, "bfloat16"),    # its decoder's cross attention
+    (1, 100, 37, 4, 2, 64, "bfloat16"),      # D = 64, Sk inside one tile
+    (1, 2048, 1601, 32, 8, 128, "bfloat16"),  # llama-3.2-vision's cross attention
+    (2, 130, 257, 8, 2, 112, "bfloat16"),    # DP = 128, Sk past two tiles
+    (1, 77, 200, 4, 4, 256, "bfloat16"),
+    (2, 200, 333, 4, 2, 64, "float32"),
+    (1, 64, 17, 4, 2, 32, "float32"),        # the smoke VLM's shape
+    (2, 90, 90, 4, 4, 32, "float32"),
+]
+
+
+def _qkv(case, seed):
+    B, Sq, Sk, Hq, Hkv, D, dtype = case
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(B, S, h, D)), dtype=getattr(torch, dtype),
+                         device="cuda") for S, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_cuda_kernel_without_causal_mask_and_cross(case):
+    """No mask but the keys' end: each row sees all Sk keys (TMA zero-fills
+    the tile past Sk; the kernel masks j >= Sk). Called as non-causal self
+    attention (the cases with Sq == Sk) or as cross attention, and counted
+    so; two launches bit-equal."""
+    _skip_without_card()
+    q, k, v = _qkv(case, seed=9)
+    n, nb, nc = (flash_attention.launches, flash_attention.launches_bidir,
+                 flash_attention.launches_cross)
+    cross = case[1] != case[2]
+    out = flash_attention(q, k, v, causal=False, cross=cross)
+    again = flash_attention(q, k, v, causal=False, cross=cross)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_bidir,
+            flash_attention.launches_cross) == (n + 2, nb + 2 * (not cross),
+                                                nc + 2 * cross)
+    assert torch.equal(out, again)
+    ref = mha_reference(q, k, v, causal=False)
+    if case[-1] == "bfloat16":
+        _check_bf16(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.cuda
+def test_cuda_cross_call_counted_by_its_mode_not_its_shape():
+    """A cross call whose query length equals Sk (a VLM at S = 1601) counts
+    as cross, a non-causal self call with Sq != Sk as non-causal self."""
+    _skip_without_card()
+    same = _qkv((1, 64, 64, 4, 2, 32, "float32"), 11)
+    ragged = _qkv((1, 64, 17, 4, 2, 32, "float32"), 12)
+    n, nb, nc = (flash_attention.launches, flash_attention.launches_bidir,
+                 flash_attention.launches_cross)
+    flash_attention(*same, causal=False, cross=True)
+    flash_attention(*ragged, causal=False)
+    assert (flash_attention.launches, flash_attention.launches_bidir,
+            flash_attention.launches_cross) == (n + 2, nb + 1, nc + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_cross_attention_gradients_match_plain():
+    _skip_without_card()
+    q, k, v = (t.requires_grad_() for t in _qkv((2, 24, 17, 4, 2, 32, "float32"), 10))
+    g = torch.randn_like(q)
+    grads = torch.autograd.grad(
+        (flash_attention(q, k, v, causal=False, cross=True) * g).sum(), (q, k, v))
+    want = torch.autograd.grad((mha_reference(q, k, v, causal=False) * g).sum(),
+                               (q, k, v))
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

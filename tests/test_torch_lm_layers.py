@@ -149,7 +149,7 @@ def test_shared_attn_block():
 
     def fn_t(p, x):
         return TST.make_block(cfg, "shared_attn").forward(
-            p["layer"], x, {"shared": p["shared"]})
+            p["layer"], x, {"shared": p["shared"]})[0]
 
     both_j, both_t = {"layer": pj, "shared": shared_j}, {"layer": pt, "shared": shared}
     _close(fn_t(both_t, torch.tensor(x)), jax.jit(fn_j)(both_j, jnp.asarray(x)))
