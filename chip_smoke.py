@@ -11,7 +11,8 @@ Phases, each of which must pass (any failure exits non-zero):
           ptxas report.
   kernel  K4 against its plain PyTorch version on the card at the serving
           path's shapes (4 slots, cap 320) and at 8 rows with ragged
-          kv_valid, cap in {512, 4096}, window in {0, 1024}: bf16 within
+          kv_valid, cap in {512, 4096}, window in {0, 1024}, and at
+          zamba2-7b's decode (4 slots, cap 320, 32 heads of 112): bf16 within
           2e-2, one f32 case within 2e-5. Times the kernel, the plain
           version, F.scaled_dot_product_attention with the same mask (a
           yardstick only: the port never calls it) and the bound (bytes
@@ -99,8 +100,9 @@ Phases, each of which must pass (any failure exits non-zero):
   k3      K3 against its plain version (ssd_reference) on zamba2-7b's
           server shape (B = 2, L = 2048, H = 112, P = N = 64, chunk 128,
           bf16), its tower shape (B = 1), mamba2-130m's (B = 16, L = 256,
-          H = 24, P = 64, N = 128), bf16 with an initial state, and in f32
-          with an initial state: y within 5e-2 in bf16 and 2e-5 in f32
+          H = 24, P = 64, N = 128), bf16 with an initial state, in f32
+          with an initial state, and serving's extend shapes (B = 1, L =
+          128, an initial state; mamba2-130m's and zamba2-7b's): y within 5e-2 in bf16 and 2e-5 in f32
           (absolute plus relative: y reaches 8 and more, where one bf16
           rounding step is 0.0625) and as a whole, ||y - y_plain|| /
           ||y_plain|| within K3_REL_L2; the final state within an absolute
@@ -219,6 +221,45 @@ Phases, each of which must pass (any failure exits non-zero):
           limits (losses within 1e-5 relative, parameters within 1e-4) and
           K2's launches per mode as counted; then two seeded card runs of
           each MoE arch (deterministic algorithms on): bit-equal.
+  ssm-serve  mamba2-130m at full width and depth (24 layers, d 768, 24
+          SSD heads of 64, N 128, vocabulary 50,280, split 4; bf16 serving
+          tree), M = 4, random weights from a seed, served through
+          `repro_torch.launch.serve --no-smoke --bench` on the continuous
+          engine with slice's traffic (8 requests alternating clients,
+          prompts of 64..256 tokens, 32 new, 4 slots, chunk 64). Checks
+          every request's tokens, finite logits, K3 launches == 24 per
+          extend chunk (one client's 4 tower layers + 20 server layers,
+          every one on the tensor-core path) and the plain scan run 0 times
+          on the card; a torch.profiler decode phase gives the SSM decode
+          step's wall, device time and busy share. Then the sequential
+          engine on the same prompts, each alone: K3 launches == 36 per
+          prefill (every client's 4 tower layers + 20); reports each
+          request's tokens shared with the continuous engine (bf16 rounds
+          the two apart).
+  hybrid-serve  zamba2-7b at full width and depth (81 layers, d 3584, 112
+          SSD heads of 64, N 64, shared attention at layers 5, 11, ..., 77,
+          all 13 on the server; bf16, ~14.5 GB of weights), M = 2, the same
+          traffic: K3 launches == 81 per extend chunk, all tensor-core; K4
+          launches == attn_decode calls == 13 per decode step; the plain
+          scan and the plain decode run 0 times on the card.
+  sparity  full width, f32, TF32 off, cut depth: mamba2-130m at 6 layers
+          (split 2) and zamba2-7b at 12 (split 5: the shared attention at
+          layers 5 and 11, on the server), M = 2, 4 requests of 5..130
+          tokens over 2 slots at chunk 64: the continuous engine's greedy
+          tokens equal generate_sequential's on the card token for token,
+          and the card's prefill logits are within 1e-4 of the CPU's
+          (relative to max(1, max |logit|)).
+  ckpt    the LM example's --full config (mamba2-130m, M = 4, f32 masters,
+          scan_layers, no remat) trained through train/loop.py with AdamW
+          lr 3e-3, b 4, S 256 on a 4096-token MultiTaskLMSource (the
+          model's vocabulary stays 50,280), under deterministic
+          algorithms: 10 rounds with a checkpoint, 10 more resumed from the
+          file, against 20 uninterrupted rounds: loss histories and states
+          (params, moments, step) bit-equal; K3 (its f32 FMA path) and K1
+          once a round as counted. The file written on the card loads on
+          the CPU bit-equal; `repro_torch.launch.serve --checkpoint` serves
+          it twice (continuous engine, greedy) with equal tokens. The
+          files (3.94 GB each) live under build/ckpt and are removed.
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -226,9 +267,13 @@ queue the call before the start event runs, so the host's wrapper time is
 not counted; K1's tree call_ms leaves the spin out to count it.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
-line, and as its last line `{"ok": true, "device": {...}}`.
+line (K3's and K4's entries also carry `serve_launches`, their launches
+in ssm-serve and hybrid-serve), and as its last line `{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only k2,kernel` runs the build and the named
-phases alone and prints no result line. Each run prints its total time. Without CUDA,
+phases alone and prints no result line (`--only
+ssm-serve,hybrid-serve,sparity,ckpt`: the serving and checkpoint phases,
+about 2.5 minutes). Each run prints its total time, and the four serving
+and checkpoint phases each print their seconds. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -290,6 +335,11 @@ K3_CASES = [  # (case, B, L, H, P, N, chunk, dtype, initial state)
     ("mamba2_130m", 16, 256, 24, 64, 128, 128, "bfloat16", False),
     ("bf16_state", 2, 2048, 112, 64, 64, 128, "bfloat16", True),
     ("f32_state", 2, 512, 8, 64, 64, 128, "float32", True),
+    # serving's chunked extend (ssm-serve, hybrid-serve): one row, one chunk
+    # of 128 positions (the engine's 64 padded up to the chunk), resumed
+    # from the slot's f32 state
+    ("mamba2_extend", 1, 128, 24, 64, 128, 128, "bfloat16", True),
+    ("zamba2_extend", 1, 128, 112, 64, 64, 128, "bfloat16", True),
 ]
 # K3's outputs as a whole, ||y - y_plain|| / ||y_plain||: the elementwise
 # limit above lets a bf16 step through at |y| ~ 8. Set from the readings on
@@ -346,6 +396,26 @@ BASELINE_RUN = {"arch": "paper-resnet16", "b": 8, "lr": 0.1, "local_steps": 30,
                 "rounds": 15, "k1_leaves": 17}
 LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 10,
                 "lr": 0.05, "local_steps": 2, "data_vocab": 4096}
+# the serving phases of the SSM and hybrid LMs at full width and depth: 8
+# requests alternating clients, prompts of 64..256 tokens, 32 new tokens, 4
+# slots, chunk 64, random weights from a seed, bf16 serving trees
+# (profile: one more decode phase under torch.profiler; ssm-serve's gives
+# the SSM decode step's busy share)
+SERVE_RUNS = {
+    "ssm-serve": {"arch": "mamba2-130m", "M": 4, "profile": True},
+    "hybrid-serve": {"arch": "zamba2-7b", "M": 2, "profile": False},
+}
+SERVE_TRAFFIC = {"requests": 8, "slots": 4, "chunk": 64, "prompt_len": 256,
+                 "min_prompt_len": 64, "new_tokens": 32}
+# sparity: full width, f32, cut depth (mamba2-130m 6 layers, split 2;
+# zamba2-7b 12 layers, split 5: its shared attention at layers 5 and 11,
+# both on the server)
+SPARITY_ARCHS = {"mamba2-130m": {"num_layers": 6, "split_layers": 2},
+                 "zamba2-7b": {"num_layers": 12, "split_layers": 5}}
+SPARITY_LOGITS_TOL = 1e-4  # card vs CPU prefill logits, of max(1, max |logit|)
+# ckpt: the LM example's --full config, trained as lm-learn trains it
+CKPT = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
+        "data_vocab": 4096, "rounds": 20, "resume_at": 10}
 # round-1 gradients, card against CPU, max |a - b| / max |b| of the worst
 # leaf, set from the readings on an H100 (PERF.md): f64, the witness that
 # both compute one function (read: 8.3e-16), and f32 (read: 9.8e-4, twice
@@ -437,6 +507,9 @@ def kernel_phase(torch, dev):
         ("b8_cap4096_full", 8, 4096, 16, 8, 256, 0, "bfloat16", (1, 4097)),
         ("b8_cap4096_swa", 8, 4096, 16, 8, 256, 1024, "bfloat16", (1, 4097)),
         ("b8_cap4096_swa_f32", 8, 4096, 16, 8, 256, 1024, "float32", (1, 4097)),
+        # zamba2-7b's shared attention in hybrid-serve's decode (4 slots,
+        # cap 320, MHA, D = 112)
+        ("zamba2_decode", 4, 320, 32, 32, 112, 0, "bfloat16", (64, 289)),
     ]
     tol = {"bfloat16": 2e-2, "float32": 2e-5}
     rows = []
@@ -1328,15 +1401,19 @@ def k3_phase(torch, dev):
 
 
 def _lm_counts(torch):
-    """The training paths' counters, by name: (object, attribute). K2's and
-    K3's launches (K3's tensor-core ones apart) and plain forwards on CUDA
+    """The LM paths' counters, by name: (object, attribute). K2's and K3's
+    launches (K3's tensor-core ones apart) and plain forwards on CUDA
     tensors; K1's multi-tensor launches, the leaves they updated, its
-    per-leaf launches and its plain update on CUDA tensors."""
+    per-leaf launches and its plain update on CUDA tensors; serving's K4
+    launches, decode attentions and plain decodes on CUDA tensors."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import mha_reference
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import decode_reference
     from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
+    from repro_torch.models import layers
 
     from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
 
@@ -1349,7 +1426,10 @@ def _lm_counts(torch):
             "k1_single": (mtsl_update_, "launches"),
             "k2_plain": (mha_reference, "cuda_calls"),
             "k3_plain": (ssd_reference, "cuda_calls"),
-            "k1_plain": (mtsl_update_reference, "cuda_calls")}
+            "k1_plain": (mtsl_update_reference, "cuda_calls"),
+            "k4": (flash_decode, "launches"),
+            "attn_decode": (layers.attn_decode, "calls"),
+            "k4_plain": (decode_reference, "cuda_calls")}
 
 
 def _reset_counts(torch):
@@ -2361,9 +2441,298 @@ def lm_baselines_phase(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving of the SSM and hybrid LMs, and checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _serving_kinds(cfg) -> dict:
+    """Per side, the layers that scan (mamba, shared_attn: one K3 launch per
+    extend or prefill) and the shared attentions (one K4 launch per
+    decode), from the stacks' block kinds."""
+    from repro_torch.models.registry import stack_kinds
+
+    out = {}
+    for (side, _), kinds in stack_kinds(cfg).items():
+        out[side] = {"scan": sum(k in ("mamba", "shared_attn") for k in kinds),
+                     "attn": sum(k == "shared_attn" for k in kinds)}
+    return out
+
+
+def _check_tokens(outs, n: int, new_tokens: int, vocab: int, what: str):
+    if len(outs) != n:
+        raise AssertionError(f"{what}: {len(outs)} requests returned, want {n}")
+    for i, o in enumerate(outs):
+        if o.shape != (new_tokens,) or o.min() < 0 or o.max() >= vocab:
+            raise AssertionError(f"{what}: request {i}: bad tokens {o}")
+
+
+def serve_phase(torch, key):
+    """ssm-serve / hybrid-serve (see the module docstring): the launcher's
+    continuous engine at full width and depth, K3 counted per extend chunk
+    and K4 per decode step; ssm-serve then runs the sequential engine on
+    the same prompts, K3 counted per prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    c, t = SERVE_RUNS[key], SERVE_TRAFFIC
+    M, n = c["M"], t["requests"]
+    cfg = get_config(c["arch"])
+    kinds = _serving_kinds(cfg)
+    argv = ["--arch", c["arch"], "--no-smoke", "--device", "cuda",
+            "--num-clients", str(M), "--batch-per-client", str(n // M),
+            "--slots", str(t["slots"]), "--chunk", str(t["chunk"]),
+            "--prompt-len", str(t["prompt_len"]),
+            "--min-prompt-len", str(t["min_prompt_len"]),
+            "--new-tokens", str(t["new_tokens"]), "--engine", "continuous",
+            "--bench", "--seed", "0"] + (["--profile"] if c["profile"] else [])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    m = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counts(torch)
+    _check_tokens(m["outputs"], n, t["new_tokens"], cfg.vocab_size, key)
+    if not m["logits_finite"]:
+        raise AssertionError(f"{key}: non-finite logits")
+    extends, steps = m["stats"]["extend_steps"], m["stats"]["decode_steps"]
+    # an extend runs one client's tower and the server; a decode step runs
+    # every client's tower over all slots, then the server
+    k3_per_chunk = kinds["tower"]["scan"] + kinds["server"]["scan"]
+    k4_per_step = M * kinds["tower"]["attn"] + kinds["server"]["attn"]
+    if not (got["k3"] == got["k3_tc"] == k3_per_chunk * extends > 0
+            and got["k3_plain"] == 0):
+        raise AssertionError(f"{key}: counts {got}, want {k3_per_chunk} K3 launches "
+                             f"per extend chunk x {extends}, all on the tensor cores")
+    if not (got["k4"] == got["attn_decode"] == k4_per_step * steps
+            and got["k4_plain"] == 0):
+        raise AssertionError(f"{key}: counts {got}, want {k4_per_step} K4 launches "
+                             f"per decode step x {steps}")
+    res = {"arch": c["arch"], "M": M, "prefill_ms": m["prefill_ms"],
+           "decode_tok_s": m["decode_tok_s"], "tok_s_per_slot": m["tok_s_per_slot"],
+           "slots": m["slots"], "extend_steps": extends, "decode_steps": steps,
+           "counts": got, "k3_launches_per_extend_chunk": k3_per_chunk,
+           "k4_launches_per_decode_step": k4_per_step, "profile": m.get("profile"),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "continuous_s": wall}
+    if key == "ssm-serve":
+        res["sequential"] = _sequential_serve(torch, cfg, M, m["outputs"], kinds)
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def _sequential_serve(torch, cfg, M: int, outs, kinds) -> dict:
+    """The same requests through generate_sequential, each alone in its
+    client's row: K3 once per scanning layer of every client's tower and
+    of the server per prefill. Reports how many requests' tokens equal the
+    continuous engine's and how many leading tokens each shares with it
+    (bf16: chunked and whole-prompt scans, and GEMMs over 1 or 4 rows,
+    round apart, so a near tie may flip; sparity holds the parity in
+    f32)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    t = SERVE_TRAFFIC
+    model = build_model(cfg)
+    params = serve.init_params(model, M, 0, "cuda")  # the launcher's seed
+    prompts = serve._prompts(cfg, t["requests"], t["prompt_len"],
+                             t["min_prompt_len"], 0)
+    eng = ServeEngine(model, params, M, t["prompt_len"] + t["new_tokens"],
+                      device="cuda")
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    seq = []
+    for i, p in enumerate(prompts):
+        toks = np.zeros((M, 1, len(p)), np.int64)
+        toks[i % M, 0] = p
+        seq.append(eng.generate_sequential({"tokens": toks}, t["new_tokens"])[
+            i % M, 0].numpy())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counts(torch)
+    _check_tokens(seq, len(prompts), t["new_tokens"], cfg.vocab_size, "sequential")
+    per_prefill = M * kinds["tower"]["scan"] + kinds["server"]["scan"]
+    if not (got["k3"] == got["k3_tc"] == per_prefill * len(prompts)
+            and got["k3_plain"] == 0):
+        raise AssertionError(f"sequential: counts {got}, want {per_prefill} K3 "
+                             f"launches per prefill x {len(prompts)}")
+    lead = [int(np.argmax(np.append(a != b, True))) for a, b in zip(seq, outs)]
+    return {"prefills": len(prompts), "k3_launches_per_prefill": per_prefill,
+            "counts": got, "s": wall,
+            "requests_equal_to_continuous": sum(n == t["new_tokens"] for n in lead),
+            "leading_tokens_equal_to_continuous": lead}
+
+
+def serve_parity_phase(torch):
+    """sparity (see the module docstring): continuous == sequential on the
+    card, token for token, in f32; the card's prefill logits against the
+    CPU's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import build_model
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lens, new, max_len, M = [5, 70, 130, 17], [8, 6, 8, 7], 160, 2
+    out = {}
+    for arch, cut in SPARITY_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).with_updates(dtype="float32", **cut)
+        model = build_model(cfg)
+        kinds = _serving_kinds(cfg)
+        params = init_params(model, M, 1, "cuda")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=L) for L in lens]
+        _reset_counts(torch)
+        eng = ContinuousEngine(model, params, M, max_len, slots=2,
+                               chunk=SERVE_TRAFFIC["chunk"], device="cuda")
+        for i, (p, n) in enumerate(zip(prompts, new)):
+            eng.submit(Request(id=i, client=i % M, tokens=p, new_tokens=n))
+        res = eng.run()
+        seq = ServeEngine(model, params, M, max_len, device="cuda")
+        rows = []
+        for i, (p, n) in enumerate(zip(prompts, new)):
+            toks = np.zeros((M, 1, len(p)), np.int64)
+            toks[i % M, 0] = p
+            ref = seq.generate_sequential({"tokens": toks}, n)[i % M, 0].numpy()
+            if not (res[i] == ref).all():
+                raise AssertionError(f"sparity {arch} request {i}: continuous "
+                                     f"{res[i]} != sequential {ref}")
+            rows.append(toks)
+        got = _read_counts(torch)
+        if not (got["k3"] > 0 and got["k3_plain"] == 0 and got["k4_plain"] == 0
+                and got["k4"] == got["attn_decode"]
+                and (got["k4"] > 0) == (kinds["server"]["attn"] > 0)):
+            raise AssertionError(f"sparity {arch}: counts {got}")
+        # the card's prefill logits against the CPU's (plain versions)
+        cpu_params = tree_map(lambda x: x.cpu(), params)
+        cpu = ServeEngine(model, cpu_params, M, max_len, device="cpu")
+        worst = 0.0
+        with torch.no_grad():
+            for toks in rows:
+                tt = torch.as_tensor(toks)
+                lg, _ = seq._prefill(params, tt.cuda())
+                lc, _ = cpu._prefill(cpu_params, tt)
+                err = ((lg.cpu() - lc).abs().max() / max(1.0, lc.abs().max().item())).item()
+                worst = max(worst, err)
+        if not worst <= SPARITY_LOGITS_TOL:
+            raise AssertionError(f"sparity {arch}: card vs CPU prefill logits "
+                                 f"{worst} > {SPARITY_LOGITS_TOL} of their scale")
+        out[arch] = {"layers": cfg.num_layers, "split": cfg.split_layers,
+                     "requests": len(prompts), "tokens": int(sum(new)),
+                     "counts": got, "prefill_logits_rel_err": worst,
+                     "s": time.perf_counter() - t0}
+        del params, cpu_params, eng, seq, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _state_bits_equal(torch, a, b) -> bool:
+    """Two mtsl TrainStates equal bit for bit, leaf by path (a loaded tree
+    has its keys sorted): params, AdamW moments, step."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    la, lb = (dict(tree_leaves_with_path({"params": s.params, "opt": list(s.opt_state)}))
+              for s in (a, b))
+    return a.step == b.step and sorted(la) == sorted(lb) and all(
+        la[k].dtype == lb[k].dtype
+        and torch.equal(la[k].detach().cpu(), lb[k].detach().cpu()) for k in la)
+
+
+def ckpt_phase(torch, dev):
+    """ckpt (see the module docstring): train, checkpoint, resume, compare
+    with an uninterrupted run; load the card's file on the CPU; serve it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.checkpoint import load_algorithm_state
+    from repro_torch.train.loop import TrainConfig, train
+
+    c = CKPT
+    M, rounds, cut = c["M"], c["rounds"], c["resume_at"]
+    cfg = get_config(c["arch"]).with_updates(num_clients=M, scan_layers=True,
+                                             remat="none", dtype="float32")
+    model = build_model(cfg)
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    batches = list(client_batches(src, c["b"], steps=rounds, seed=0, seq_len=c["S"]))
+    folder = ROOT / "build" / "ckpt"  # inside the checkout, ignored by git
+    folder.mkdir(parents=True, exist_ok=True)
+    first, last = str(folder / "round10.msgpack"), str(folder / "round20.msgpack")
+
+    def run(steps, stream, path=None, **kw):
+        tcfg = TrainConfig(steps=steps, lr=c["lr"], log_every=1, seed=0,
+                           device=dev.type, checkpoint_path=path)
+        return train(model, adamw(c["lr"]), iter(stream), tcfg, M,
+                     component_lr=server_scaled(M), log=lambda _: None, **kw)
+
+    t0 = time.perf_counter()
+    with _deterministic(torch) as nondet:
+        _reset_counts(torch)
+        full, h_full = run(rounds, batches)
+        counts = _read_counts(torch)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        _, h1 = run(cut, batches[:cut], first)
+        t1 = time.perf_counter()
+        restored, name, extra = load_algorithm_state(first, "mtsl", cfg=cfg, device=dev)
+        load_s = time.perf_counter() - t1
+        resumed, h2 = run(rounds, batches[cut:], last, init_state=restored,
+                          start_round=extra["round"])
+    torch.cuda.synchronize()
+    keys = ("loss", "step", "round", "participants")
+    if [[e[k] for k in keys] for e in h1 + h2] != [[e[k] for k in keys] for e in h_full]:
+        raise AssertionError(f"ckpt: resumed history {h1 + h2} != uninterrupted {h_full}")
+    if not (name == "mtsl" and extra == {"step": cut, "round": cut}):
+        raise AssertionError(f"ckpt: file says {name} {extra}")
+    if not _state_bits_equal(torch, resumed, full):
+        raise AssertionError("ckpt: the resumed state differs from the uninterrupted one")
+    # f32 (the example's --full config): K3's FMA path
+    want = _lm_launches_per_round(cfg, M)["k3"] * rounds
+    if not (counts["k3"] == want and counts["k3_plain"] == 0
+            and counts["k1"] == rounds and counts["k1_plain"] == 0):
+        raise AssertionError(f"ckpt: counts {counts}, want {want} K3 launches and "
+                             f"{rounds} K1 launches")
+    cpu_state, _, extra20 = load_algorithm_state(last, "mtsl", cfg=cfg, device="cpu")
+    if not (extra20["round"] == rounds and _state_bits_equal(torch, cpu_state, resumed)):
+        raise AssertionError("ckpt: the card's file does not load on the CPU bit-equal")
+    del full, resumed, restored, cpu_state
+    torch.cuda.empty_cache()
+    argv = ["--arch", c["arch"], "--no-smoke", "--device", "cuda",
+            "--checkpoint", last, "--prompt-len", "64", "--new-tokens", "16"]
+    outs = [serve.main(argv) for _ in range(2)]
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("ckpt: two loads of the file serve different tokens")
+    o = outs[0]
+    if o.shape != (M, 2, 16) or int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size:
+        raise AssertionError(f"ckpt: bad served tokens {o}")
+    size = os.path.getsize(last)
+    for path in (first, last):
+        os.remove(path)
+    return {"arch": c["arch"], "M": M, "rounds": rounds, "resume_at": cut,
+            "losses": [e["loss"] for e in h_full], "resume_bit_equal": True,
+            "cpu_load_bit_equal": True, "served_tokens_equal": True,
+            "file_bytes": size, "load_s": load_s, "train_s": t_train,
+            "counts": counts, "ops_without_deterministic_algorithm": nondet,
+            "phase_s": time.perf_counter() - t0}
+
+
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
-          "lm-baselines", "encdec", "moe", "vlm", "fparity")
+          "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
+          "hybrid-serve", "sparity", "ckpt")
 
 
 def _phases_wanted(argv):
@@ -2529,6 +2898,34 @@ def main() -> int:
                   flush=True)
             report["fparity"] = zoo_parity_phase(torch)
             print("FPARITY " + json.dumps(report["fparity"]), flush=True)
+
+        for key in SERVE_RUNS:
+            if want(key):
+                c = SERVE_RUNS[key]
+                print(f"[{key}] {c['arch']} full width/depth, M={c['M']}, "
+                      "continuous engine", flush=True)
+                report[key] = serve_phase(torch, key)
+                print(f"{key.upper().replace('-', '_')} " + json.dumps(report[key]),
+                      flush=True)
+                print(f"[{key}] {report[key]['phase_s']:.1f} s", flush=True)
+                torch.cuda.empty_cache()
+
+        if want("sparity"):
+            print(f"[sparity] {', '.join(SPARITY_ARCHS)} full width, cut depth, "
+                  "f32: continuous == sequential; card vs CPU logits", flush=True)
+            t1 = time.perf_counter()
+            report["sparity"] = serve_parity_phase(torch)
+            print("SPARITY " + json.dumps(report["sparity"]), flush=True)
+            print(f"[sparity] {time.perf_counter() - t1:.1f} s", flush=True)
+
+        if want("ckpt"):
+            print(f"[ckpt] {CKPT['arch']} full config, adamw, {CKPT['resume_at']} "
+                  f"+ {CKPT['rounds'] - CKPT['resume_at']} rounds resumed vs "
+                  f"{CKPT['rounds']}; then served", flush=True)
+            report["ckpt"] = ckpt_phase(torch, dev)
+            print("CKPT " + json.dumps(report["ckpt"]), flush=True)
+            print(f"[ckpt] {report['ckpt']['phase_s']:.1f} s", flush=True)
+            torch.cuda.empty_cache()
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")
@@ -2546,6 +2943,9 @@ def main() -> int:
     lm_counts = report["lm_train"]["counts"]
     k2 = dict(K2, launches=lm_counts["k2"], **{key: k2_cases[0][key] for key in keys})
     k3 = dict(K3, launches=lm_counts["k3"], **{key: k3_cases[0][key] for key in keys})
+    # the serving phases' launches beside the training path's
+    k3["serve_launches"] = {key: report[key]["counts"]["k3"] for key in SERVE_RUNS}
+    k4["serve_launches"] = {key: report[key]["counts"]["k4"] for key in SERVE_RUNS}
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [k4, k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,11 @@ tensors, and the function that the kernel's backward differentiates.
 Shapes: x [B, L, H, P], dt [B, L, H] (softplus-activated), A [H],
 Bm / Cm [B, L, N]; returns y [B, L, H, P] in x's dtype and the final state
 [B, H, P, N] in f32.
+
+`ssd_decode_step` is the one-token recurrence of serving (the port of the
+reference's `ssd_decode_step`, lines 108-122). No TPU kernel computes it,
+so this plain version is its only form: elementwise work and two small
+products per row.
 """
 from __future__ import annotations
 
@@ -97,6 +102,19 @@ def ssd_chunked(
 
     y = (y_diag + y_off).reshape(Bsz, L, H, P)
     return y.to(x.dtype), h
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One token of the recurrence, in f32: state [B, H, P, N] f32, x_t
+    [B, H, P], dt_t [B, H] (softplus-activated), A [H], B_t / C_t [B, N].
+    Returns (y_t [B, H, P] in x_t's dtype, new_state [B, H, P, N] f32)."""
+    f32 = torch.float32
+    dt = dt_t.to(f32)
+    dA = torch.exp(dt * A.to(f32)[None, :])  # [B, H]
+    upd = B_t.to(f32)[:, None, None, :] * (x_t.to(f32) * dt[..., None])[..., None]
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_t.to(f32))
+    return y.to(x_t.dtype), new_state
 
 
 # calls on CUDA tensors: on the card the model path must reach the kernel,

@@ -1,22 +1,33 @@
-"""Serving launcher (port of `repro.launch.serve`): random-inits a split
-model from a seed and serves batched requests with per-client routing
-through the MTSL towers. Runs on CUDA unless `--device cpu` is given.
+"""Serving launcher (port of `repro.launch.serve`): loads a checkpoint (or
+random-inits a split model from a seed) and serves batched requests with
+per-client routing through the MTSL towers. Runs on CUDA unless
+`--device cpu` is given. The default arch is mamba2-130m, as the
+reference's; the dense (gemma3-12b, ...), ssm and hybrid (zamba2-7b)
+families serve.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --prompt-len 12 --new-tokens 6
+    # a checkpoint of either package: an Algorithm-registry state
+    # (launch/train.py --checkpoint) or a {"params", "step"} file (the LM
+    # example's --full run), for the config the flags name
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
+        --checkpoint /tmp/mtsl_lm.msgpack
     # timed serving smoke (prefill ms / decode tok/s / tok/s/slot):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --bench --engine continuous
-    # gemma3-12b at full width on one card, 2 clients, 8 mixed-length
-    # requests over 4 slots:
-    PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke \
-        --num-clients 2 --batch-per-client 4 --slots 4 --chunk 64 \
-        --prompt-len 256 --min-prompt-len 64 --new-tokens 32 --bench
+    # gemma3-12b (or zamba2-7b) at full width on one card, 2 clients, 8
+    # mixed-length requests over 4 slots:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --no-smoke --num-clients 2 --batch-per-client 4 --slots 4 \
+        --chunk 64 --prompt-len 256 --min-prompt-len 64 --new-tokens 32 \
+        --bench
 
 Unlike the reference's `--smoke` (store_true with default True), `--smoke`
-here can be turned off (`--no-smoke`), so the full config is reachable.
-Loading a checkpoint (`--checkpoint`) is not ported yet.
+here can be turned off (`--no-smoke`), so the full config is reachable. A
+checkpoint holds the training tree (f32 masters in the reference's layout);
+it is served as the serving tree (matmul weights in cfg.dtype), with the
+number of clients its towers have.
 """
 from __future__ import annotations
 
@@ -31,7 +42,10 @@ from repro_torch.core.split import stack_towers
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.sampling import fold_in
+from repro_torch.train.checkpoint import load_checkpoint
+from repro_torch.utils.convert import params_from_jax, state_from_jax, to_serving_tree
 from repro_torch.utils.device import generator, resolve_device
+from repro_torch.utils.tree import tree_leaves
 
 
 def init_params(model, num_clients: int, seed: int, device):
@@ -41,6 +55,29 @@ def init_params(model, num_clients: int, seed: int, device):
     return {"towers": stack_towers(lambda g: model.init_tower(g, serving=True),
                                    gen, num_clients),
             "server": model.init_server(gen, serving=True)}
+
+
+def load_serve_params(path: str, model, device):
+    """The serving tree {"towers", "server"} of a checkpoint of either
+    format: an Algorithm-registry state (train/loop.py) or a raw
+    {"params": ...} tree (the LM example), both in the reference's
+    layout."""
+    tree = load_checkpoint(path)
+    cfg = model.cfg
+    if isinstance(tree, dict) and "algorithm" in tree and "state" in tree:
+        from repro_torch.core.algorithms import get_algorithm
+
+        alg = get_algorithm(tree["algorithm"])
+        if alg.serve_params is None:
+            raise SystemExit(
+                f"algorithm {alg.name!r} states are not directly servable "
+                "(per-client servers / mixtures have no single split model)")
+        state = state_from_jax(alg.name, alg.state_from_tree(tree["state"]),
+                               device, cfg)
+        params = alg.serve_params(state)
+    else:
+        params = params_from_jax(tree["params"], device, cfg)
+    return to_serving_tree(model, params)
 
 
 def _prompts(cfg, n: int, prompt_len: int, min_prompt_len, seed: int):
@@ -89,8 +126,9 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
               new_tokens: int, engine_kind: str, chunk: int = 8, *,
               device="cuda", slots=None, min_prompt_len=None, seed=0,
               profile: bool = False) -> dict:
-    """Timed serving smoke: one warm-up pass, then a measured prefill phase
-    and decode phase over M*b requests (request i is client i % M).
+    """Timed serving smoke: a warm-up (continuous: one short request;
+    sequential: the whole batch), then a measured prefill phase and decode
+    phase over M*b requests (request i is client i % M).
     Returns prefill_ms / decode_tok_s / tok_s_per_slot.
 
     continuous: `slots` (default M*b) cache slots; prompt lengths uniform
@@ -117,7 +155,10 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
                 eng.submit(Request(id=i, client=i % M, tokens=prompts[i],
                                    new_tokens=new_tokens))
 
-        submit_all()  # warm-up
+        # warm-up: one request through one extend chunk and one decode step
+        # runs every kernel of the path once (nothing to compile)
+        eng.submit(Request(id=-1, client=0, tokens=prompts[0][:chunk],
+                           new_tokens=2))
         eng.run()
         submit_all()
         eng.sync()
@@ -135,6 +176,7 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
         extra = {"profile": _profile_decode(eng, submit_all)} if profile else {}
         extra.update({"extend_chunks": n_chunks,
                  "decode_steps": eng.stats["decode_steps"],
+                 "stats": dict(eng.stats),  # every pass, warm-up included
                  "logits_finite": eng.logits_finite(),
                  "outputs": [res[i] for i in range(n_req)]})
     else:
@@ -182,7 +224,7 @@ def _sync(dev: torch.device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma3-12b")
+    ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True, help="the reduced smoke config (default); "
                     "--no-smoke for the full published config")
@@ -210,6 +252,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed: params init, prompts, and the engine's "
                          "per-request sampling keys")
+    ap.add_argument("--checkpoint", default=None,
+                    help="serve the weights of this checkpoint (either "
+                         "package's format) instead of a random init")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -221,9 +266,16 @@ def main(argv=None):
     if model.tower_prefill is None:
         raise SystemExit(f"--arch {args.arch}: serving of the {cfg.family} "
                          "family is not ported yet")
-    M = args.num_clients or cfg.num_clients
     b = args.batch_per_client
-    params = init_params(model, M, args.seed, dev)
+    if args.checkpoint:
+        params = load_serve_params(args.checkpoint, model, dev)
+        M = tree_leaves(params["towers"])[0].shape[0]
+        if args.num_clients not in (None, M):
+            raise SystemExit(f"--num-clients {args.num_clients}: the checkpoint "
+                             f"has {M} client towers")
+    else:
+        M = args.num_clients or cfg.num_clients
+        params = init_params(model, M, args.seed, dev)
 
     if args.bench:
         metrics = run_bench(model, params, cfg, M, b, args.prompt_len,

@@ -43,9 +43,14 @@ vision features or audio frames beside the tokens, which the LM source
 does not draw (the reference launcher cannot train them either; the
 registry's round takes such batches). Not ported yet: `--mesh`,
 `--client-chunk`, `--async` and `--sync-every` (the event engine and its
-multi-server replica sync), `--data cached`, `--checkpoint`,
-`--vectorized-data` and the prefetch pipeline (`--prefetch`; the loop is
-synchronous, which the reference guarantees gives the same trajectory).
+multi-server replica sync), `--data cached`, `--vectorized-data` and the
+prefetch pipeline (`--prefetch`; the loop is synchronous, which the
+reference guarantees gives the same trajectory).
+
+`--checkpoint PATH` saves the algorithm's state every 100 rounds and after
+the last one, in the reference's file format (train/checkpoint.py): the
+reference's `load_algorithm_state` reads it, and so do the port's and
+`repro_torch.launch.serve --checkpoint`.
 """
 from __future__ import annotations
 
@@ -170,6 +175,8 @@ def main(argv=None):
                          "launcher; --no-smoke reaches the full config)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the state here every 100 rounds and at the end")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)  # fail before building anything
@@ -242,7 +249,8 @@ def main(argv=None):
                        local_steps=args.local_steps, seed=args.seed,
                        hp_overrides=hp_overrides, schedule=scfg,
                        batch_per_client=args.batch_per_client, topology=topo,
-                       device=args.device)
+                       device=args.device, checkpoint_path=args.checkpoint,
+                       checkpoint_every=100 if args.checkpoint else 0)
     state, history = train(model, opt, batches, tcfg, M, component_lr=clr)
     print(f"final loss: {history[-1]['loss']:.4f}")
     if topo is not None:

@@ -206,7 +206,13 @@ def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0, kv_src=None,
 
 def attn_prefill(p, x, cfg: ModelConfig, *, window: int = 0, max_len: int = 0):
     """x: [B,S,d]. Returns (y [B,S,d], cache {'k','v'} [B,cap,Hkv,D]) with
-    the prompt's K/V in rows 0..S-1 and zeros up to cap = max_len or S."""
+    the prompt's K/V in rows 0..S-1 and zeros up to cap = max_len or S.
+
+    The attention is the plain `mha_reference` on every device, as in the
+    reference (its prefill never reaches its kernel either), though K2
+    computes this function: only the sequential engine prefills, and it is
+    the continuous engine's parity oracle, not its path. Moving it onto K2
+    would make the two engines' attention round apart."""
     _no_ring(cfg)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     S = x.shape[-2]
@@ -261,7 +267,11 @@ def attn_extend(p, x_c, cache, start, cfg: ModelConfig, *, window: int = 0):
     tokens already cached per row (start + C <= cap). Rows past a
     request's real prompt length ride along as padding: their K/V land
     above every real query's causal horizon and are overwritten by later
-    writes at the true positions. Returns y [B,C,d]."""
+    writes at the true positions. Returns y [B,C,d].
+
+    The attention is the plain `mha_reference` on every device: queries at
+    an offset against a partly filled cache, a function no TPU kernel
+    computes (the reference runs `mha_reference` here too)."""
     h = rmsnorm(p["norm"], x_c, cfg.norm_eps)
     B, C, _ = x_c.shape
     start_rows = per_row(start, B, x_c.device).long()

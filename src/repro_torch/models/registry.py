@@ -26,19 +26,25 @@ encoder norm, and the decoder (embedding, `cross` blocks over the encoder's
 output, norm, head). The MoE blocks' aux loss comes back from
 server_forward (the tower's is dropped, as the reference drops it).
 
-Serving hooks, for `family == "dense"`:
+Serving hooks, for the "dense", "ssm" and "hybrid" families:
 
     tower_prefill(tp, tokens [B,S], max_len)      -> (h [B,S,d], tcache)
     server_prefill(sp, h, max_len)                -> (logits [B,1,V] f32, scache)
     tower_decode(tp, tokens [B,1], tcache, pos, write=None)  -> h [B,1,d]
     server_decode(sp, h, scache, pos, write=None) -> logits [B,1,V] f32
-    tower_extend(tp, tokens [B,C], tcache, start) -> h [B,C,d]
+    tower_extend(tp, tokens [B,C], tcache, start, n_valid) -> h [B,C,d]
     server_extend(sp, h, scache, start, n_valid)  -> logits [B,1,V] f32
 
-In serving, the reference passes and returns `{"h": ...}` smashed dicts
-and new caches; the port passes the activation tensor and updates caches
-in place. Training keeps the reference's `{"h": ...}` dicts. The serving
-of the moe, vlm and encdec families is not ported: their hooks are None.
+`n_valid` counts the real tokens of the chunk: the Mamba blocks of the
+ssm and hybrid stacks neutralise the padded steps with it (an int, or a
+[B] tensor of one per row), and server_extend takes the logits at the
+last real token (an int: the continuous engine extends one request at a
+time). `write` ([B] bool) freezes the caches of the rows where it is
+False. In serving, the reference passes and returns `{"h": ...}` smashed
+dicts and new caches; the port passes the activation tensor and updates
+caches in place. Training keeps the reference's `{"h": ...}` dicts. The
+serving of the moe, vlm and encdec families is not ported: their hooks
+are None.
 
 A decoder's `init_tower(gen, serving=False)` / `init_server(gen,
 serving=False)` give the training tree (every leaf in cfg.param_dtype, as
@@ -62,7 +68,8 @@ class Model(NamedTuple):
     # training
     tower_forward: Optional[Callable] = None
     server_forward: Optional[Callable] = None
-    # serving (dense family; decoder inits take serving=True)
+    # serving (dense, ssm and hybrid families; decoder inits take
+    # serving=True)
     tower_prefill: Optional[Callable] = None
     server_prefill: Optional[Callable] = None
     tower_decode: Optional[Callable] = None
@@ -151,12 +158,14 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                                 {"pos": pos, "write": write})
         return _head(sp, x)
 
-    def tower_extend(tp, tokens, tcache, start):
+    def tower_extend(tp, tokens, tcache, start, n_valid):
         x = L.embed(tp["embed"], tokens, cfg)  # [B,C]
-        return tower_stack.extend(tp["blocks"], x, tcache, {"start": start})
+        return tower_stack.extend(tp["blocks"], x, tcache,
+                                  {"start": start, "n_valid": n_valid})
 
-    def server_extend(sp, h, scache, start, n_valid: int):
-        x = server_stack.extend(sp["blocks"], h, scache, {"start": start})
+    def server_extend(sp, h, scache, start, n_valid):
+        x = server_stack.extend(sp["blocks"], h, scache,
+                                {"start": start, "n_valid": n_valid})
         # logits for each row's LAST REAL chunk token (padded tail is garbage)
         x = x[:, max(int(n_valid) - 1, 0)][:, None]
         return _head(sp, x)

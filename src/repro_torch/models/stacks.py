@@ -31,13 +31,14 @@ the reference.
 
 Zamba2's *shared* attention block is loop-invariant: its parameters live
 at the stack level ("shared") and reach each `shared_attn` layer through
-ctx["shared"].
+ctx["shared"] (in every mode: the stack puts them there).
 
-Serving (prefill / decode / extend / caches) is ported for the `full` and
-`swa` kinds only.
+Serving (prefill / decode / extend / caches) is ported for the `full`,
+`swa`, `mamba` and `shared_attn` kinds; `bidir`, `cross`, `moe` and
+`dense_moe_lead` have none yet.
 
 ctx keys: "shared" and "xattn" (forward), "max_len" (prefill), "pos" and
-optional "write" (decode), "start" (extend).
+optional "write" (decode), "start" and "n_valid" (extend).
 """
 from __future__ import annotations
 
@@ -49,7 +50,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_forward, moe_params
-from repro_torch.models.ssm import mamba_forward, mamba_params
+from repro_torch.models.ssm import (
+    init_mamba_cache,
+    mamba_decode,
+    mamba_extend,
+    mamba_forward,
+    mamba_params,
+    mamba_prefill,
+)
 
 PyTree = Any
 
@@ -130,17 +138,32 @@ def _moe_block(cfg: ModelConfig) -> Block:
 
 def _mamba_block(cfg: ModelConfig) -> Block:
     def init(gen, serving):
-        return {"mamba": mamba_params(gen, cfg)}
+        return {"mamba": mamba_params(gen, cfg, serving)}
 
     def forward(p, x, ctx):
         return x + mamba_forward(p["mamba"], x, cfg), 0.0
 
-    return Block(init, forward)
+    def prefill(p, x, ctx):
+        y, cache = mamba_prefill(p["mamba"], x, cfg)
+        return x + y, cache
+
+    def decode(p, x_t, cache, ctx):
+        return x_t + mamba_decode(p["mamba"], x_t, cache, cfg,
+                                  write=ctx.get("write"))
+
+    def init_cache(batch, cap, device):
+        return init_mamba_cache(cfg, batch, device)
+
+    def extend(p, x_c, cache, ctx):
+        return x_c + mamba_extend(p["mamba"], x_c, cache, ctx["n_valid"], cfg)
+
+    return Block(init, forward, prefill, decode, init_cache, extend)
 
 
 def _shared_attn_block(cfg: ModelConfig) -> Block:
     """Zamba2-style layer: apply the stack-level *shared* attention+MLP
-    block (params from ctx["shared"]), then its own mamba."""
+    block (params from ctx["shared"]; its own KV cache per application),
+    then its own mamba. Cache: {"attn", "mamba"}."""
     mamba = _mamba_block(cfg)
 
     def forward(p, x, ctx):
@@ -149,7 +172,32 @@ def _shared_attn_block(cfg: ModelConfig) -> Block:
         x = x + L.mlp_forward(sp["mlp"], x, cfg)
         return mamba.forward(p, x, ctx)
 
-    return Block(mamba.init, forward)
+    def prefill(p, x, ctx):
+        sp = ctx["shared"]
+        a, acache = L.attn_prefill(sp["attn"], x, cfg, max_len=ctx["max_len"])
+        x = x + a
+        x = x + L.mlp_forward(sp["mlp"], x, cfg)
+        x, mcache = mamba.prefill(p, x, ctx)
+        return x, {"attn": acache, "mamba": mcache}
+
+    def decode(p, x_t, cache, ctx):
+        sp = ctx["shared"]
+        x_t = x_t + L.attn_decode(sp["attn"], x_t, cache["attn"], ctx["pos"],
+                                  cfg, write=ctx.get("write"))
+        x_t = x_t + L.mlp_forward(sp["mlp"], x_t, cfg)
+        return mamba.decode(p, x_t, cache["mamba"], ctx)
+
+    def init_cache(batch, cap, device):
+        return {"attn": L.init_attn_cache(cfg, batch, cap, device),
+                "mamba": init_mamba_cache(cfg, batch, device)}
+
+    def extend(p, x_c, cache, ctx):
+        sp = ctx["shared"]
+        x_c = x_c + L.attn_extend(sp["attn"], x_c, cache["attn"], ctx["start"], cfg)
+        x_c = x_c + L.mlp_forward(sp["mlp"], x_c, cfg)
+        return mamba.extend(p, x_c, cache["mamba"], ctx)
+
+    return Block(mamba.init, forward, prefill, decode, init_cache, extend)
 
 
 def make_block(cfg: ModelConfig, kind: str) -> Block:
@@ -254,9 +302,11 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
             p[f"seg{si}"] = _pack(units, si)
         return p
 
+    def _with_shared(p, ctx):
+        return dict(ctx, shared=p["shared"]) if has_shared else ctx
+
     def forward(p, x, ctx):
-        if has_shared:
-            ctx = dict(ctx, shared=p["shared"])
+        ctx = _with_shared(p, ctx)
         aux_total = 0.0
         for si, blocks in enumerate(seg_blocks):
             def unit_fwd(px, x, blocks=blocks):
@@ -275,6 +325,7 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
         return x, aux_total
 
     def prefill(p, x, ctx):
+        ctx = _with_shared(p, ctx)
         caches = {}
         for si, blocks in enumerate(seg_blocks):
             unit_caches = []
@@ -287,6 +338,7 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
         return x, caches
 
     def decode(p, x_t, caches, ctx):
+        ctx = _with_shared(p, ctx)
         for si, blocks in enumerate(seg_blocks):
             for px, cx in zip(_units(p, si), _units(caches, si)):
                 for j, b in enumerate(blocks):
@@ -294,6 +346,7 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
         return x_t
 
     def extend(p, x_c, caches, ctx):
+        ctx = _with_shared(p, ctx)
         for si, blocks in enumerate(seg_blocks):
             for px, cx in zip(_units(p, si), _units(caches, si)):
                 for j, b in enumerate(blocks):

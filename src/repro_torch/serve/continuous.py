@@ -2,8 +2,10 @@
 fixed pool of cache *slots* shared by requests that arrive, prefill in
 chunks, decode, and leave.
 
-  * Slot pool. Tower and server KV caches are allocated once with shape
-    [slots, cap, ...], cap = max_len rounded up to a chunk multiple. Each
+  * Slot pool. Tower and server caches are allocated once with shape
+    [slots, ...]: the KV caches [slots, cap, ...], cap = max_len rounded up
+    to a chunk multiple, and the Mamba layers' conv tails [slots, W-1, D]
+    and f32 SSM states [slots, H, P, N]. Each
     slot carries device-side scalars: pos (tokens cached), tok (last
     sampled token), client (which tower serves it), remaining (tokens
     still to emit), n_out, a sampling key and a temperature, plus a
@@ -19,11 +21,13 @@ chunks, decode, and leave.
     would copy every tower once per slot per step. One batched server
     decode over all slots follows, then sampling on the device (no
     device->host sync per token). Inactive slots ride along, but their
-    caches are frozen: decode writes K/V in place only for active rows
-    (for the tower, active rows of that client).
+    caches are frozen: decode writes K/V, conv tails and SSM states in
+    place only for active rows (for the tower, active rows of that client).
 
   * `_extend` — chunked prefill of ONE request into its slot, through
-    views of the slot's caches and of its client's tower. The final chunk
+    views of the slot's caches (every cache leaf is written with `copy_` or
+    an indexed store, so the pool itself changes) and of its client's
+    tower, with the chunk's real-token count n_valid. The final chunk
     samples the request's first output token at its last prompt position.
 
   * Host scheduler. `submit()` queues requests; `run()` loops: admit at
@@ -183,7 +187,7 @@ class ContinuousEngine:
         if self.device.type == "cuda":  # pinned: the copy does not stall the host
             tokens = tokens.pin_memory().to(self.device, non_blocking=True)
         h = model.tower_extend(client_view(self.params["towers"], req.client),
-                               tokens, tc, start)
+                               tokens, tc, start, n_valid)
         logits = model.server_extend(self.params["server"], h, sc, start,
                                      n_valid)
 

@@ -96,7 +96,11 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, inputs, new_tokens: int, temperature: float = 0.0,
                  rng: Optional[int] = None) -> torch.Tensor:
-        """inputs: {tokens: [M,b,S]}; returns int32 [M, b, new_tokens]."""
+        """inputs: {tokens: [M,b,S]}; returns int32 [M, b, new_tokens].
+        Families without chunked prefill (no tower_extend) and ring KV
+        caches go through generate_sequential, as in the reference."""
+        if self.model.tower_extend is None or self.model.cfg.decode_long_window:
+            return self.generate_sequential(inputs, new_tokens, temperature, rng)
         from repro_torch.serve.continuous import ContinuousEngine, Request
 
         M = self.M

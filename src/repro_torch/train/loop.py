@@ -19,11 +19,21 @@ Edge topology and simulated clock (core/topology.py): with
 transfers. A topology with an explicit capability profile overrides the
 schedule's drawn one. The training itself is unchanged.
 
+Checkpoints (train/checkpoint.py, the reference's file format): with
+`TrainConfig.checkpoint_path` set, the state is saved every
+`checkpoint_every` rounds (absolute rounds; 0: never periodically) and
+always after the last round unless that round's periodic save wrote it,
+with extra = {"step", "round"} (+ "sim_time" under a topology). A
+resumed run passes the restored state as `init_state`, the checkpoint's
+round as `start_round` (the schedule stream, the eval stream and the
+rounds resume at that absolute round; `batches` yields the remaining
+round batches) and its "sim_time" as `start_sim_time`.
+
 The reference runs the host side `prefetch` rounds ahead on a thread and
 guarantees that any depth gives the same trajectory, so this synchronous
 loop (depth 0) reproduces it. Not ported yet, and refused with an error:
 the async event engine (with it the multi-server replica sync), mesh
-sharding, client chunking and checkpoints.
+sharding and client chunking.
 """
 from __future__ import annotations
 
@@ -52,9 +62,10 @@ from repro_torch.core.topology import Topology
 from repro_torch.models.registry import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.optim.per_component import ComponentLR
+from repro_torch.train.checkpoint import save_algorithm_state
 from repro_torch.utils.device import generator, resolve_device
 
-_NOT_PORTED = ("checkpoint_path", "mesh", "client_chunk", "async_mode")
+_NOT_PORTED = ("mesh", "client_chunk", "async_mode")
 
 
 @dataclass
@@ -80,8 +91,10 @@ class TrainConfig:
     # per-algorithm knobs such as prox_mu, momentum, num_clusters
     hp_overrides: dict = field(default_factory=dict)
     device: str = "cuda"
-    # not ported yet: setting any of these raises
+    # checkpoints (see the module docstring)
     checkpoint_path: Optional[str] = None
+    checkpoint_every: int = 0  # in rounds; 0 = only the final save
+    # not ported yet: setting any of these raises
     mesh: Optional[object] = None
     client_chunk: Optional[int] = None
     async_mode: bool = False
@@ -107,6 +120,8 @@ def train(
     eval_batches=None,
     log: Callable[[str], None] = print,
     init_state=None,
+    start_round: int = 0,
+    start_sim_time: float = 0.0,
 ):
     """Returns (final_state, history list of metric dicts).
 
@@ -116,7 +131,9 @@ def train(
     step, round, loss, time and participants, plus acc_mtl on eval rounds
     and sim_time under a topology.
     The state is built on `tcfg.device` from `tcfg.seed` unless
-    `init_state` is given."""
+    `init_state` is given; `init_state`, `start_round` and
+    `start_sim_time` resume a checkpointed run (see the module
+    docstring)."""
     for name in _NOT_PORTED:
         if getattr(tcfg, name):
             raise NotImplementedError(
@@ -148,13 +165,17 @@ def train(
              if init_state is None else init_state)
     round_fn = alg.round_fn(model, num_clients, hp)
     eval_fn = alg.eval_fn(model, num_clients) if eval_batches else None
-    # ONE cycling iterator for the whole run (a list is rotated through)
+    # ONE cycling iterator for the whole run (a list is rotated through);
+    # a resumed run skips the evals the interrupted one consumed
     eval_iter = itertools.cycle(eval_batches) if eval_fn is not None else None
+    if eval_iter is not None and start_round and tcfg.eval_every:
+        for _ in range(start_round // tcfg.eval_every):
+            next(eval_iter)
     if scfg.is_trivial:
         sched_iter = itertools.repeat(full_schedule(num_clients, spr))
     else:
         sched_iter = schedule_stream(scfg, num_clients, spr,
-                                     tcfg.batch_per_client)
+                                     tcfg.batch_per_client, start_round)
 
     # simulated clock: each round's traffic events billed on the graph
     topo, round_sim_s = tcfg.topology, None
@@ -172,18 +193,34 @@ def train(
                 time_per_sample_s=tcfg.time_per_sample_s,
                 round_idx=r, local_steps=spr)
 
+    def save(r):
+        extra = {"step": r * spr, "round": r}
+        if round_sim_s is not None:
+            extra["sim_time"] = sim_time
+        save_algorithm_state(tcfg.checkpoint_path, alg, state, extra=extra,
+                             cfg=model.cfg)
+
     history = []
-    sim_time = 0.0
+    sim_time = float(start_sim_time)
+    rounds_done = saved_round = start_round
     t0 = time.time()  # reporting-only (history["time"]), never trajectory
-    for i, (batch, sched) in enumerate(zip(itertools.islice(batches, rounds),
+    remaining = max(rounds - start_round, 0)
+    for i, (batch, sched) in enumerate(zip(itertools.islice(batches, remaining),
                                            sched_iter)):
-        r = i + 1  # 1-based round index
+        r = start_round + i + 1  # absolute 1-based round index
         state, metrics = round_fn(state, stage_batch(batch, device), sched)
+        rounds_done = r
         if round_sim_s is not None:
             width = next(iter(batch.values())).shape[1] // spr
             sim_time += round_sim_s(r, width, sched)
+        if (tcfg.checkpoint_path and tcfg.checkpoint_every
+                and r % tcfg.checkpoint_every == 0):
+            save(r)
+            saved_round = r
+        # the first-round log belongs to a fresh run only: a resumed run
+        # records the entries an uninterrupted one would
         do_log = bool((tcfg.log_every and r % tcfg.log_every == 0)
-                      or i == 0 or r == rounds)
+                      or (i == 0 and start_round == 0) or r == rounds)
         do_eval = bool(eval_fn is not None and tcfg.eval_every
                        and (r % tcfg.eval_every == 0 or r == rounds))
         if not (do_log or do_eval):
@@ -202,4 +239,6 @@ def train(
             log(f"step {entry['step']:>6d}  loss {entry['loss']:.4f}"
                 + (f"  acc_mtl {entry['acc_mtl']:.3f}" if "acc_mtl" in entry else "")
                 + f"  ({entry['time']:.1f}s)")
+    if tcfg.checkpoint_path and rounds_done > saved_round:
+        save(rounds_done)  # always leave a final checkpoint behind
     return state, history

@@ -133,7 +133,7 @@ def test_hp_flags_and_refusals():
         with pytest.raises(SystemExit):
             main(["--device", "cpu", "--smoke", flag, "2"])
     cfg = get_config("paper-mlp", smoke=True)
-    for field in ("mesh", "async_mode", "client_chunk", "checkpoint_path"):
+    for field in ("mesh", "async_mode", "client_chunk"):
         with pytest.raises(NotImplementedError):
             train(build_model(cfg), sgd(0.1), iter(()),
                   TrainConfig(device="cpu", **{field: 1}), 3)

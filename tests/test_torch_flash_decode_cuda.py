@@ -7,7 +7,7 @@ a machine that has only PyTorch:
 
 Cases: the reference's DECODE_CASES shapes (tests/test_kernels.py), a
 windowed case with every row's window past the first KV tile, and the
-gemma3-12b shapes. Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
+gemma3-12b shapes and zamba2-7b's (D = 112). Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
 
 The bf16 kernel (split-KV over fixed runs of 64 cache rows, merged in the
 same launch) is also held at every G, at caps that are not multiples of 64,
@@ -40,6 +40,10 @@ CASES = [
     (4, 1000, 16, 4, 256, 0, "bfloat16", False),
     (2, 777, 16, 2, 96, 100, "bfloat16", True),
     (2, 4096, 16, 8, 256, 0, "bfloat16", False),
+    # zamba2-7b's shared attention in the hybrid-serve decode (4 slots, MHA,
+    # D = 112) and the same in f32
+    (4, 320, 32, 32, 112, 0, "bfloat16", False),
+    (4, 320, 32, 32, 112, 0, "float32", False),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

@@ -230,11 +230,25 @@ def test_training_and_serving_trees():
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
 def test_serving_of_ssm_and_hybrid_refused(arch):
-    """The Mamba serving paths are not ported: a stack holding a mamba or
-    shared_attn layer refuses every serving call, so the engines cannot
-    reach one."""
-    model = build_model(get_config(arch, smoke=True))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.init_tower_cache(1, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model.server_prefill({"blocks": {}}, torch.zeros(1, 4, 8), 8)
+    """The Mamba serving paths are ported (tests/test_torch_ssm_serving.py,
+    tests/test_torch_hybrid_serving.py): the caches are the reference's
+    (raw conv tails [B, W-1, D] in cfg.dtype, the SSM state [B, H, P, N] in
+    f32). What stays refused for these families is a ring KV cache
+    (decode_long_window), which the continuous engine does not take."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.serve.continuous import ContinuousEngine
+
+    cfg = get_config(arch, smoke=True)
+    leaves = dict(tree_leaves_with_path(build_model(cfg).init_tower_cache(3, 8, "cpu")))
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_headdim
+    states = [v for k, v in leaves.items() if k.endswith("state")]
+    tails = [v for k, v in leaves.items() if k.endswith("conv_x")]
+    assert states and len(tails) == len(states)
+    assert all(s.shape == (3, H, cfg.ssm_headdim, cfg.ssm_state)
+               and s.dtype == torch.float32 for s in states)
+    assert all(t.shape == (3, cfg.ssm_conv_width - 1, d_in) for t in tails)
+    ring = build_model(cfg.with_updates(decode_long_window=8))
+    params = init_params(ring, cfg.num_clients, 0, "cpu")
+    with pytest.raises(ValueError, match="ring KV caches"):
+        ContinuousEngine(ring, params, cfg.num_clients, 16, device="cpu")

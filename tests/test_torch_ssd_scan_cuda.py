@@ -8,8 +8,9 @@ a machine that has only PyTorch:
 Cases: the reference's SSD_CASES shapes (tests/test_kernels.py), a length
 that is not a multiple of the FMA path's 64-position tile, a nonzero
 initial state, the shapes of the LM path (zamba2-7b's server and tower,
-mamba2-130m's), and the tensor-core path (bf16, P and N multiples of 16)
-with an initial state, at N = 128, at P = 128, with P and N below one
+mamba2-130m's), serving's extend shapes (one row of one 128-position
+chunk resumed from an f32 state: mamba2-130m's and zamba2-7b's), and the
+tensor-core path (bf16, P and N multiples of 16) with an initial state, at N = 128, at P = 128, with P and N below one
 64-column block, with a ragged last chunk and with an odd head count (one
 head per block). Each launch is counted by path (`ssd_scan.launches_tc`
 for the tensor-core path, as `scan_plan` picks it), and a repeat launch
@@ -43,9 +44,13 @@ CASES = [
     (1, 256, 2, 128, 128, 128, "bfloat16", False),  # P = N = 128
     (2, 192, 4, 32, 16, 64, "bfloat16", False),    # padded blocks, ragged chunk
     (1, 256, 3, 48, 80, 128, "bfloat16", True),    # odd H: one head a block
+    # serving's chunked extend: one row, one chunk, resumed from a state
+    (1, 128, 24, 64, 128, 128, "bfloat16", True),  # mamba2-130m
+    (1, 128, 112, 64, 64, 128, "bfloat16", True),  # zamba2-7b
 ]
-# the main paths' shapes (zamba2-7b server and tower, mamba2-130m)
-MAIN = CASES[7:10]
+# the main paths' shapes (zamba2-7b server and tower, mamba2-130m, and the
+# two extend shapes)
+MAIN = CASES[7:10] + CASES[16:18]
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 
 
@@ -122,3 +127,33 @@ def test_cuda_repeat_launch_is_bit_equal(case):
     y2, s2 = ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES[16:18])
+def test_cuda_extend_chunk_resumes_a_slot_of_the_pool(case):
+    """Serving's extend: the initial state is a slot's view of a [slots, H,
+    P, N] pool, and the steps past n_valid = 64 have dt = 0 and zero
+    inputs (mamba_extend's padding), so the final state equals the scan
+    over the real steps alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, dtv, A, Bm, Cm, h0 = _inputs(case, seed=7)
+    pool = torch.zeros((3,) + tuple(h0.shape[1:]), dtype=torch.float32, device="cuda")
+    pool[1:2] = h0
+    n_valid = 64
+    for t in (x, dtv, Bm, Cm):
+        t[:, n_valid:] = 0
+    n_tc = ssd_scan.launches_tc
+    y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=pool[1:2])
+    torch.cuda.synchronize()
+    assert ssd_scan.launches_tc == n_tc + 1
+    yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
+    torch.testing.assert_close(y.float(), yr.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+    real = [t[:, :n_valid] for t in (x, dtv, Bm, Cm)]
+    _, s_real = ssd_reference(real[0], real[1], A, real[2], real[3], chunk=n_valid,
+                              initial_state=h0)
+    scale = max(1.0, float(s_real.abs().max()))
+    assert float((st - s_real).abs().max()) <= 1e-4 * scale
+    assert torch.equal(pool[1:2], h0)  # the kernel reads the view, never writes it
