@@ -11,9 +11,12 @@ Phases, each of which must pass (any failure exits non-zero):
           ptxas report.
   kernel  K4 against its plain PyTorch version on the card at the serving
           path's shapes (4 slots, cap 320) and at 8 rows with ragged
-          kv_valid, cap in {512, 4096}, window in {0, 1024}, and at
-          zamba2-7b's decode (4 slots, cap 320, 32 heads of 112): bf16 within
-          2e-2, one f32 case within 2e-5. Times the kernel, the plain
+          kv_valid, cap in {512, 4096}, window in {0, 1024}, at
+          zamba2-7b's decode (4 slots, cap 320, 32 heads of 112), at the
+          self-attention decodes of moe-serve, vlm-serve and encdec-serve
+          (cap 288 / 96), and in the ring and cross modes of the rest of the zoo's serving
+          (K4_CASES: mistral-nemo's ring of 4096, the VLM's 1601 and
+          whisper's 1500 source keys): bf16 within 2e-2, f32 within 2e-5. Times the kernel, the plain
           version, F.scaled_dot_product_attention with the same mask (a
           yardstick only: the port never calls it) and the bound (bytes
           over 3.35 TB/s or flops over the dtype's peak, whichever is
@@ -249,6 +252,53 @@ Phases, each of which must pass (any failure exits non-zero):
           tokens equal generate_sequential's on the card token for token,
           and the card's prefill logits are within 1e-4 of the CPU's
           (relative to max(1, max |logit|)).
+  moe-serve  deepseek-moe-16b at full width and depth (28 layers: the
+          dense lead and one MoE layer in each tower, 26 MoE layers of 64
+          routed experts of 1408 + 2 shared, top-6, on the server; bf16,
+          capacity factor 1.25), M = 2, through `launch.serve --no-smoke
+          --bench --profile` on the continuous engine with slice's traffic.
+          Checks every request's tokens, finite logits, K4 launches ==
+          attn_decode calls == 30 per decode step (2 x 2 tower + 26), no
+          plain decode, no ring or cross launch; reports the MoE's
+          dropped-row share and a profiled decode phase. Then the sequential
+          engine on the same prompts, each alone (K4 30 per decode step),
+          and the leading tokens each request shares with the continuous
+          engine (bf16 at capacity 1.25: no parity expected).
+  vlm-serve, encdec-serve  llama-3.2-vision-11b (40 layers, 8 cross
+          layers all on the server; vision 1601 x 1280 from the seed) at
+          M = 2, b = 2, prompt 256, and whisper-tiny (4 + 4 layers, 1500
+          frames of 384 from the seed) at M = 4, b = 2, prompt 64, both at
+          full width and depth in bf16 with 32 new tokens, through `launch.serve
+          --no-smoke --bench --engine sequential` (a warm-up generation
+          and a timed one: two prefills). Checks, per prefill, K2 cross
+          launches == cross layers (8; 4) and K2 non-causal == encoder
+          layers run (0; 4 x 2 tower + 2 server), and no causal K2 launch
+          (the prefill's self-attention is plain, as the reference's); per
+          decode step, K4 == self-attentions + cross decodes (2 x 4 + 36 +
+          8 = 52; 4 + 4) with the cross decodes counted apart, attn_decode
+          calls == K4 launches, no plain decode.
+  swa-serve  mistral-nemo-12b-swa (40 layers, d 5120, every layer a
+          window of 4096 on a ring cache of 4096 slots), M = 2, b = 1, bf16:
+          `launch.serve --no-smoke --bench --engine sequential` at a
+          4,064-token prompt and 64 new tokens (the decode wraps the ring),
+          then the launcher's weights and inputs at 4,608 tokens (the
+          rolled prefill) on ring caches, and at both lengths on
+          full-capacity caches (decode_long_window = 0). Checks every ring decode on K4
+          in ring mode (44 per step), cache capacities (4,096 on the ring,
+          prompt + new otherwise), tokens; reports the leading tokens the
+          ring and the full caches share (bf16: not asserted).
+  xparity  the four configs of the new serving paths in f32 at full width
+          (TF32 off): deepseek-moe-16b at 4 layers (split 2, the tower
+          holding an MoE layer; capacity factor 8.0, the smoke configs'
+          no-drop setting), llama-3.2-vision-11b at 5 (split 2, the cross
+          layer on the server), whisper-tiny whole, mistral-nemo-12b-swa at
+          4 with a window of 64, M = 2, 4 requests of 5..130 tokens each
+          alone in its client's row: the card's prefill and every decode
+          step's logits within 1e-4 of the CPU's (plain versions, fed the
+          card's tokens; of max(1, max |logit|) per row), greedy tokens
+          equal card vs CPU, K4 (ring, cross) and K2 (cross) on the card as
+          the config asks; the MoE's continuous engine equals its
+          sequential one token for token.
   ckpt    the LM example's --full config (mamba2-130m, M = 4, f32 masters,
           scan_layers, no remat) trained through train/loop.py with AdamW
           lr 3e-3, b 4, S 256 on a 4096-token MultiTaskLMSource (the
@@ -267,12 +317,15 @@ queue the call before the start event runs, so the host's wrapper time is
 not counted; K1's tree call_ms leaves the spin out to count it.
 
 Prints the card's name and power limit first, a `{"kernels": [...]}`
-line (K3's and K4's entries also carry `serve_launches`, their launches
-in ssm-serve and hybrid-serve), and as its last line `{"ok": true, "device": {...}}`.
+line (K2's, K3's and K4's entries also carry `serve_launches`, their
+launches in the serving phases: K4's ring and cross decodes and K2's
+cross and non-causal prefill attention apart), and as its last line
+`{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only k2,kernel` runs the build and the named
 phases alone and prints no result line (`--only
 ssm-serve,hybrid-serve,sparity,ckpt`: the serving and checkpoint phases,
-about 2.5 minutes). Each run prints its total time, and the four serving
+about 2.5 minutes; `--only moe-serve,vlm-serve,encdec-serve,swa-serve,
+xparity`: the rest of the zoo's serving). Each run prints its total time, and the four serving
 and checkpoint phases each print their seconds. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
 """
@@ -306,6 +359,37 @@ K2 = {"name": "flash_attention", "route": "cuda",
 K3 = {"name": "ssd_scan", "route": "cuda",
       "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
       "replaces": "src/repro/kernels/ssd_scan/kernel.py:86"}
+K4_CASES = [  # (case, B, cap, Hq, Hkv, D, window, dtype, kv_valid range, mode)
+    ("serving_path", 4, 320, 16, 8, 256, 1024, "bfloat16", (64, 289), "self"),
+    ("b8_cap512_full", 8, 512, 16, 8, 256, 0, "bfloat16", (1, 513), "self"),
+    ("b8_cap512_swa", 8, 512, 16, 8, 256, 1024, "bfloat16", (1, 513), "self"),
+    ("b8_cap4096_full", 8, 4096, 16, 8, 256, 0, "bfloat16", (1, 4097), "self"),
+    ("b8_cap4096_swa", 8, 4096, 16, 8, 256, 1024, "bfloat16", (1, 4097), "self"),
+    ("b8_cap4096_swa_f32", 8, 4096, 16, 8, 256, 1024, "float32", (1, 4097), "self"),
+    # zamba2-7b's shared attention in hybrid-serve's decode (4 slots,
+    # cap 320, MHA, D = 112)
+    ("zamba2_decode", 4, 320, 32, 32, 112, 0, "bfloat16", (64, 289), "self"),
+    # the self-attention decodes of moe-serve (deepseek-moe-16b, MHA, D =
+    # 128: the continuous engine's 4 slots, then the sequential engine's
+    # M b = 8 server rows after one 256-token prompt), vlm-serve
+    # (llama-3.2-vision-11b, GQA 4, M b = 4 rows) and encdec-serve
+    # (whisper-tiny's decoder, MHA, D = 64, M b = 8 rows, cap 64 + 32)
+    ("moe_decode", 4, 288, 16, 16, 128, 0, "bfloat16", (64, 289), "self"),
+    ("moe_decode_seq", 8, 288, 16, 16, 128, 0, "bfloat16", (257, 289), "self"),
+    ("vlm_decode", 4, 288, 32, 8, 128, 0, "bfloat16", (257, 289), "self"),
+    ("whisper_decode", 8, 96, 6, 6, 64, 0, "bfloat16", (65, 97), "self"),
+    # mistral-nemo-12b-swa's ring of 4096 slots in swa-serve's decode (M b =
+    # 2 rows; past the wrap every slot is live)
+    ("nemo_ring", 2, 4096, 32, 8, 128, 0, "bfloat16", (4096, 4097), "ring"),
+    ("nemo_ring_ragged_f32", 4, 4096, 32, 8, 128, 0, "float32", (1, 4097), "ring"),
+    # cross decodes over every key of the source: llama-3.2-vision's 1601
+    # patches (vlm-serve, M b = 4 rows, GQA 4) and whisper-tiny's 1500
+    # frames (encdec-serve, M b = 8 rows, MHA, D = 64); neither is a
+    # multiple of K4's 64-row split
+    ("vlm_cross", 4, 1601, 32, 8, 128, 0, "bfloat16", (1601, 1602), "cross"),
+    ("whisper_cross", 8, 1500, 6, 6, 64, 0, "bfloat16", (1500, 1501), "cross"),
+    ("whisper_cross_f32", 8, 1500, 6, 6, 64, 0, "float32", (1500, 1501), "cross"),
+]
 K2_CASES = [  # (case, B, Sq, Sk, causal, Hq, Hkv, D, window, dtype); the
     # first is lm-train's path
     ("zamba2_path", 2, 2048, 2048, True, 32, 32, 112, 0, "bfloat16"),
@@ -324,6 +408,13 @@ K2_CASES = [  # (case, B, Sq, Sk, causal, Hq, Hkv, D, window, dtype); the
     # deepseek-moe-16b's causal attention (MHA, no window) on the server
     ("moe_path", 2, 2048, 2048, True, 16, 16, 128, 0, "bfloat16"),
     ("f32_xattn", 2, 200, 333, False, 4, 2, 64, 0, "float32"),
+    # serving's prefill: whisper-tiny's encoder in a client's tower (B = b
+    # = 2; the server's encoder layers take B = M b = 8, whisper_enc's
+    # shape) and its decoder's cross attention (B = 8, a 64-token prompt);
+    # llama-3.2-vision's cross attention (B = M b = 4, a 256-token prompt)
+    ("whisper_enc_tower_serve", 2, 1500, 1500, False, 6, 6, 64, 0, "bfloat16"),
+    ("whisper_xattn_serve", 8, 64, 1500, False, 6, 6, 64, 0, "bfloat16"),
+    ("vlm_xattn_serve", 4, 256, 1601, False, 32, 8, 128, 0, "bfloat16"),
 ]
 # K2's bf16 outputs are also held as a whole: the elementwise limit above
 # lets one bf16 step through at |out| ~ 1, which at S = 2048 (|out| ~ 0.05)
@@ -402,8 +493,14 @@ LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 10,
 # (profile: one more decode phase under torch.profiler; ssm-serve's gives
 # the SSM decode step's busy share)
 SERVE_RUNS = {
-    "ssm-serve": {"arch": "mamba2-130m", "M": 4, "profile": True},
-    "hybrid-serve": {"arch": "zamba2-7b", "M": 2, "profile": False},
+    "ssm-serve": {"arch": "mamba2-130m", "M": 4, "profile": True,
+                  "sequential": True},
+    "hybrid-serve": {"arch": "zamba2-7b", "M": 2, "profile": False,
+                     "sequential": False},
+    # deepseek-moe-16b at full depth (its tower holds the dense lead and one
+    # MoE layer, so the continuous engine's slot-alone dispatch runs)
+    "moe-serve": {"arch": "deepseek-moe-16b", "M": 2, "profile": True,
+                  "sequential": True},
 }
 SERVE_TRAFFIC = {"requests": 8, "slots": 4, "chunk": 64, "prompt_len": 256,
                  "min_prompt_len": 64, "new_tokens": 32}
@@ -413,6 +510,31 @@ SERVE_TRAFFIC = {"requests": 8, "slots": 4, "chunk": 64, "prompt_len": 256,
 SPARITY_ARCHS = {"mamba2-130m": {"num_layers": 6, "split_layers": 2},
                  "zamba2-7b": {"num_layers": 12, "split_layers": 5}}
 SPARITY_LOGITS_TOL = 1e-4  # card vs CPU prefill logits, of max(1, max |logit|)
+# the VLM and the encoder-decoder at full width and depth through the
+# launcher's sequential engine (--bench: a warm-up generation, then a timed
+# prefill and decode), with vision features / audio frames from the seed
+SEQ_SERVE_RUNS = {
+    "vlm-serve": {"arch": "llama-3.2-vision-11b", "M": 2, "b": 2,
+                  "prompt_len": 256, "new_tokens": 32},
+    "encdec-serve": {"arch": "whisper-tiny", "M": 4, "b": 2, "prompt_len": 64,
+                     "new_tokens": 32},
+}
+# mistral-nemo-12b-swa's ring caches (4096 slots) at full width and depth:
+# a prompt whose decode wraps the ring, then one longer than the ring (the
+# rolled prefill)
+SWA_SERVE = {"arch": "mistral-nemo-12b-swa", "M": 2, "b": 1, "new_tokens": 64,
+             "prompt_lens": (4064, 4608)}
+# xparity: full width, f32, cut depth (whisper-tiny whole); the MoE at the
+# smoke configs' no-drop capacity factor, the ring at a window of 64
+XPARITY_ARCHS = {
+    "deepseek-moe-16b": {"num_layers": 4, "split_layers": 2,
+                         "capacity_factor": 8.0},
+    "llama-3.2-vision-11b": {"num_layers": 5, "split_layers": 2},
+    "whisper-tiny": {},
+    "mistral-nemo-12b-swa": {"num_layers": 4, "split_layers": 2,
+                             "sliding_window": 64, "decode_long_window": 64},
+}
+XPARITY_LOGITS_TOL = 1e-4  # card vs CPU logits, of max(1, max |logit|) per row
 # ckpt: the LM example's --full config, trained as lm-learn trains it
 CKPT = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
         "data_vocab": 4096, "rounds": 20, "resume_at": 10}
@@ -500,20 +622,9 @@ def kernel_phase(torch, dev):
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [  # (name, B, cap, Hq, Hkv, D, window, dtype, kv_valid range)
-        ("serving_path", 4, 320, 16, 8, 256, 1024, "bfloat16", (64, 289)),
-        ("b8_cap512_full", 8, 512, 16, 8, 256, 0, "bfloat16", (1, 513)),
-        ("b8_cap512_swa", 8, 512, 16, 8, 256, 1024, "bfloat16", (1, 513)),
-        ("b8_cap4096_full", 8, 4096, 16, 8, 256, 0, "bfloat16", (1, 4097)),
-        ("b8_cap4096_swa", 8, 4096, 16, 8, 256, 1024, "bfloat16", (1, 4097)),
-        ("b8_cap4096_swa_f32", 8, 4096, 16, 8, 256, 1024, "float32", (1, 4097)),
-        # zamba2-7b's shared attention in hybrid-serve's decode (4 slots,
-        # cap 320, MHA, D = 112)
-        ("zamba2_decode", 4, 320, 32, 32, 112, 0, "bfloat16", (64, 289)),
-    ]
     tol = {"bfloat16": 2e-2, "float32": 2e-5}
     rows = []
-    for name, B, cap, Hq, Hkv, D, window, dt, (lo, hi) in cases:
+    for name, B, cap, Hq, Hkv, D, window, dt, (lo, hi), mode in K4_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(dtype)
         k = torch.randn(B, cap, Hkv, D, generator=gen, device=dev).to(dtype)
@@ -523,8 +634,8 @@ def kernel_phase(torch, dev):
         kv_valid[-1] = hi - 1  # one row full
         q_offset = kv_valid - 1
         kw = dict(kv_valid=kv_valid, q_offset=q_offset, window=window)
-        out = flash_decode(q, k, v, **kw)
-        again = flash_decode(q, k, v, **kw)
+        out = flash_decode(q, k, v, mode=mode, **kw)
+        again = flash_decode(q, k, v, mode=mode, **kw)
         ref = decode_reference(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -546,8 +657,9 @@ def kernel_phase(torch, dev):
         amask = mask[:, None, None, :]
         row = {
             "case": name, "B": B, "cap": cap, "window": window, "dtype": dt,
-            "max_abs_err": err,
-            "ms": _median_ms(lambda: flash_decode(q, k, v, **kw), 50, flush),
+            "mode": mode, "max_abs_err": err,
+            "ms": _median_ms(lambda: flash_decode(q, k, v, mode=mode, **kw), 50,
+                             flush),
             "plain_ms": _median_ms(lambda: decode_reference(q, k, v, **kw), 10,
                                    flush),
             "library_ms": _median_ms(
@@ -1428,6 +1540,8 @@ def _lm_counts(torch):
             "k3_plain": (ssd_reference, "cuda_calls"),
             "k1_plain": (mtsl_update_reference, "cuda_calls"),
             "k4": (flash_decode, "launches"),
+            "k4_ring": (flash_decode, "launches_ring"),
+            "k4_cross": (flash_decode, "launches_cross"),
             "attn_decode": (layers.attn_decode, "calls"),
             "k4_plain": (decode_reference, "cuda_calls")}
 
@@ -2446,16 +2560,25 @@ def lm_baselines_phase(torch, dev):
 # ---------------------------------------------------------------------------
 
 
+_SELF_ATTN_KINDS = ("full", "swa", "dense_moe_lead", "moe", "cross",
+                    "shared_attn")
+
+
 def _serving_kinds(cfg) -> dict:
-    """Per side, the layers that scan (mamba, shared_attn: one K3 launch per
-    extend or prefill) and the shared attentions (one K4 launch per
-    decode), from the stacks' block kinds."""
+    """Per side, from the stacks' block kinds: the layers that scan
+    (mamba, shared_attn: one K3 launch per extend or prefill), the
+    self-attentions (one K4 launch per decode), the cross layers (one K2
+    launch per prefill, one K4 per decode) and the encoder layers (bidir:
+    one K2 launch per prefill)."""
     from repro_torch.models.registry import stack_kinds
 
     out = {}
     for (side, _), kinds in stack_kinds(cfg).items():
-        out[side] = {"scan": sum(k in ("mamba", "shared_attn") for k in kinds),
-                     "attn": sum(k == "shared_attn" for k in kinds)}
+        got = out.setdefault(side, {"scan": 0, "attn": 0, "cross": 0, "bidir": 0})
+        got["scan"] += sum(k in ("mamba", "shared_attn") for k in kinds)
+        got["attn"] += sum(k in _SELF_ATTN_KINDS for k in kinds)
+        got["cross"] += sum(k == "cross" for k in kinds)
+        got["bidir"] += sum(k == "bidir" for k in kinds)
     return out
 
 
@@ -2468,12 +2591,14 @@ def _check_tokens(outs, n: int, new_tokens: int, vocab: int, what: str):
 
 
 def serve_phase(torch, key):
-    """ssm-serve / hybrid-serve (see the module docstring): the launcher's
-    continuous engine at full width and depth, K3 counted per extend chunk
-    and K4 per decode step; ssm-serve then runs the sequential engine on
-    the same prompts, K3 counted per prefill."""
+    """ssm-serve / hybrid-serve / moe-serve (see the module docstring): the
+    launcher's continuous engine at full width and depth, K3 counted per
+    extend chunk and K4 per decode step, the MoE's dropped rows tallied;
+    ssm-serve and moe-serve then run the sequential engine on the same
+    prompts, K3 counted per prefill and K4 per decode step."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models.moe import moe_forward
 
     c, t = SERVE_RUNS[key], SERVE_TRAFFIC
     M, n = c["M"], t["requests"]
@@ -2488,10 +2613,15 @@ def serve_phase(torch, key):
             "--bench", "--seed", "0"] + (["--profile"] if c["profile"] else [])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(torch)
-    t0 = time.perf_counter()
-    m = serve.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    moe_forward.tally = [] if cfg.family == "moe" else None
+    try:
+        t0 = time.perf_counter()
+        m = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tally = moe_forward.tally
+    finally:
+        moe_forward.tally = None
     got = _read_counts(torch)
     _check_tokens(m["outputs"], n, t["new_tokens"], cfg.vocab_size, key)
     if not m["logits_finite"]:
@@ -2501,12 +2631,12 @@ def serve_phase(torch, key):
     # every client's tower over all slots, then the server
     k3_per_chunk = kinds["tower"]["scan"] + kinds["server"]["scan"]
     k4_per_step = M * kinds["tower"]["attn"] + kinds["server"]["attn"]
-    if not (got["k3"] == got["k3_tc"] == k3_per_chunk * extends > 0
-            and got["k3_plain"] == 0):
+    if not (got["k3"] == got["k3_tc"] == k3_per_chunk * extends
+            and (got["k3"] > 0) == (k3_per_chunk > 0) and got["k3_plain"] == 0):
         raise AssertionError(f"{key}: counts {got}, want {k3_per_chunk} K3 launches "
                              f"per extend chunk x {extends}, all on the tensor cores")
     if not (got["k4"] == got["attn_decode"] == k4_per_step * steps
-            and got["k4_plain"] == 0):
+            and got["k4_plain"] == 0 and got["k4_ring"] == got["k4_cross"] == 0):
         raise AssertionError(f"{key}: counts {got}, want {k4_per_step} K4 launches "
                              f"per decode step x {steps}")
     res = {"arch": c["arch"], "M": M, "prefill_ms": m["prefill_ms"],
@@ -2516,7 +2646,11 @@ def serve_phase(torch, key):
            "k4_launches_per_decode_step": k4_per_step, "profile": m.get("profile"),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "continuous_s": wall}
-    if key == "ssm-serve":
+    if tally:
+        kept, routed = torch.stack(tally).sum(0).tolist()
+        res.update(moe_rows_kept=kept, moe_rows_routed=routed,
+                   dropped_share=1.0 - kept / routed)
+    if c["sequential"]:
         res["sequential"] = _sequential_serve(torch, cfg, M, m["outputs"], kinds)
     res["phase_s"] = time.perf_counter() - t0
     return res
@@ -2525,7 +2659,8 @@ def serve_phase(torch, key):
 def _sequential_serve(torch, cfg, M: int, outs, kinds) -> dict:
     """The same requests through generate_sequential, each alone in its
     client's row: K3 once per scanning layer of every client's tower and
-    of the server per prefill. Reports how many requests' tokens equal the
+    of the server per prefill, K4 once per self-attention of every
+    client's tower and of the server per decode step. Reports how many requests' tokens equal the
     continuous engine's and how many leading tokens each shares with it
     (bf16: chunked and whole-prompt scans, and GEMMs over 1 or 4 rows,
     round apart, so a near tie may flip; sparity holds the parity in
@@ -2560,7 +2695,13 @@ def _sequential_serve(torch, cfg, M: int, outs, kinds) -> dict:
             and got["k3_plain"] == 0):
         raise AssertionError(f"sequential: counts {got}, want {per_prefill} K3 "
                              f"launches per prefill x {len(prompts)}")
-    lead = [int(np.argmax(np.append(a != b, True))) for a, b in zip(seq, outs)]
+    per_step = M * kinds["tower"]["attn"] + kinds["server"]["attn"]
+    steps = len(prompts) * (t["new_tokens"] - 1)
+    if not (got["k4"] == got["attn_decode"] == per_step * steps
+            and got["k4_plain"] == 0):
+        raise AssertionError(f"sequential: counts {got}, want {per_step} K4 "
+                             f"launches per decode step x {steps}")
+    lead = [_lead(a, b) for a, b in zip(seq, outs)]
     return {"prefills": len(prompts), "k3_launches_per_prefill": per_prefill,
             "counts": got, "s": wall,
             "requests_equal_to_continuous": sum(n == t["new_tokens"] for n in lead),
@@ -2620,8 +2761,8 @@ def serve_parity_phase(torch):
         with torch.no_grad():
             for toks in rows:
                 tt = torch.as_tensor(toks)
-                lg, _ = seq._prefill(params, tt.cuda())
-                lc, _ = cpu._prefill(cpu_params, tt)
+                lg, _ = seq._prefill(params, {"tokens": tt.cuda()})
+                lc, _ = cpu._prefill(cpu_params, {"tokens": tt})
                 err = ((lg.cpu() - lc).abs().max() / max(1.0, lc.abs().max().item())).item()
                 worst = max(worst, err)
         if not worst <= SPARITY_LOGITS_TOL:
@@ -2632,6 +2773,261 @@ def serve_parity_phase(torch):
                      "counts": got, "prefill_logits_rel_err": worst,
                      "s": time.perf_counter() - t0}
         del params, cpu_params, eng, seq, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lead(a, b) -> int:
+    """Leading tokens two greedy streams share."""
+    import numpy as np
+
+    return int(np.argmax(np.append(np.asarray(a) != np.asarray(b), True)))
+
+
+def seq_serve_phase(torch, key):
+    """vlm-serve / encdec-serve (see the module docstring): the launcher's
+    sequential engine at full width and depth, K2 counted per prefill (per
+    mode) and K4 per decode step (per mode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    c = SEQ_SERVE_RUNS[key]
+    M, b, n = c["M"], c["b"], c["new_tokens"]
+    cfg = get_config(c["arch"])
+    kinds = _serving_kinds(cfg)
+    argv = ["--arch", c["arch"], "--no-smoke", "--device", "cuda",
+            "--num-clients", str(M), "--batch-per-client", str(b),
+            "--prompt-len", str(c["prompt_len"]), "--new-tokens", str(n),
+            "--engine", "sequential", "--bench", "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    m = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _read_counts(torch)
+    _check_tokens(m["outputs"], M * b, n, cfg.vocab_size, key)
+    # the bench's warm-up generation and its timed pass: two prefills and
+    # 2 (n - 1) decode steps
+    prefills, steps = 2, 2 * (n - 1)
+    tw, sv = kinds["tower"], kinds["server"]
+    want = {"k2_cross": (M * tw["cross"] + sv["cross"]) * prefills,
+            "k2_bidir": (M * tw["bidir"] + sv["bidir"]) * prefills,
+            "k4_cross": (M * tw["cross"] + sv["cross"]) * steps,
+            "k4": (M * (tw["attn"] + tw["cross"]) + sv["attn"] + sv["cross"]) * steps}
+    want["k2"] = want["k2_cross"] + want["k2_bidir"]  # self-attention prefill: plain
+    if not (all(got[k] == v for k, v in want.items()) and got["k2_cross"] > 0
+            and got["attn_decode"] == got["k4"] and got["k4_plain"] == 0
+            and got["k4_ring"] == 0):
+        raise AssertionError(f"{key}: counts {got}, want {want} (two prefills, "
+                             f"{steps} decode steps)")
+    return {"arch": c["arch"], "M": M, "b": b, "prompt_len": c["prompt_len"],
+            "new_tokens": n, "prefill_ms": m["prefill_ms"],
+            "decode_tok_s": m["decode_tok_s"], "tok_s_per_slot": m["tok_s_per_slot"],
+            "ms_per_decode_step": M * b / m["decode_tok_s"] * 1e3,
+            "counts": got, "want": want,
+            "k4_launches_per_decode_step": want["k4"] // steps,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "phase_s": wall}
+
+
+def _attn_caps(caches) -> set:
+    """The capacities of every KV cache leaf in a ServeCaches."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    return {x.shape[1] for k, x in tree_leaves_with_path(
+        {"tower": caches.tower, "server": caches.server})
+        if k.endswith(("/k", "/v"))}
+
+
+def swa_serve_phase(torch):
+    """swa-serve (see the module docstring): ring caches at full width and
+    depth through the launcher's sequential engine, then both prompt
+    lengths on ring and full-capacity caches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, stage_inputs
+
+    c = SWA_SERVE
+    M, b, n = c["M"], c["b"], c["new_tokens"]
+    cfg = get_config(c["arch"])
+    window = cfg.sliding_window
+    per_step = sum(M * v["attn"] if side == "tower" else v["attn"]
+                   for side, v in _serving_kinds(cfg).items())
+    L0, L1 = c["prompt_lens"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    m = serve.main(["--arch", c["arch"], "--no-smoke", "--device", "cuda",
+                    "--num-clients", str(M), "--batch-per-client", str(b),
+                    "--prompt-len", str(L0), "--new-tokens", str(n),
+                    "--engine", "sequential", "--bench", "--seed", "0"])
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    got = _read_counts(torch)
+    _check_tokens(m["outputs"], M * b, n, cfg.vocab_size, "swa-serve")
+    steps = 2 * (n - 1)
+    if not (got["k4"] == got["k4_ring"] == got["attn_decode"] == per_step * steps
+            and got["k4_plain"] == 0):
+        raise AssertionError(f"swa-serve: counts {got}, want {per_step} ring "
+                             f"launches per decode step x {steps}")
+    res = {"arch": c["arch"], "M": M, "b": b, "window": window,
+           "bench": {"prompt_len": L0, "new_tokens": n,
+                     "prefill_ms": m["prefill_ms"], "decode_tok_s": m["decode_tok_s"],
+                     "ms_per_decode_step": M * b / m["decode_tok_s"] * 1e3,
+                     "counts": got, "s": bench_s},
+           "k4_launches_per_decode_step": per_step}
+
+    # both lengths on the ring and on full-capacity caches, the launcher's
+    # weights (seed 0) and inputs; the bench's generation is L0's ring run
+    model = build_model(cfg)
+    model_full = build_model(cfg.with_updates(decode_long_window=0))
+    params = serve.init_params(model, M, 0, "cuda")
+    for L in (L0, L1):
+        inputs = stage_inputs(serve.seeded_inputs(cfg, M, b, L, 0), "cuda")
+        out = {}
+        if L == L0:
+            out["ring"] = {"tokens": np.stack(m["outputs"]), "counts": got,
+                           "s": bench_s}
+        for name, mod in (("ring", model), ("full", model_full)):
+            if name in out:
+                continue
+            eng = ServeEngine(mod, params, M, L + n, device="cuda")
+            with torch.no_grad():
+                caps = _attn_caps(eng._prefill(params, inputs)[1])
+            want_cap = {window} if name == "ring" else {L + n}
+            if caps != want_cap:
+                raise AssertionError(f"swa-serve {name} L={L}: cache caps {caps}, "
+                                     f"want {want_cap}")
+            _reset_counts(torch)
+            t1 = time.perf_counter()
+            toks = eng.generate_sequential(inputs, n)
+            torch.cuda.synchronize()
+            got = _read_counts(torch)
+            ring = got["k4_ring"] if name == "ring" else 0
+            if not (got["k4"] == got["attn_decode"] == per_step * (n - 1)
+                    and got["k4_ring"] == ring and got["k4_plain"] == 0):
+                raise AssertionError(f"swa-serve {name} L={L}: counts {got}")
+            if name == "ring" and ring != got["k4"]:
+                raise AssertionError(f"swa-serve ring L={L}: a decode off the ring: {got}")
+            _check_tokens(list(toks.reshape(M * b, n).numpy()), M * b, n,
+                          cfg.vocab_size, f"swa-serve {name} L={L}")
+            out[name] = {"tokens": toks.reshape(M * b, n).numpy(), "counts": got,
+                         "s": time.perf_counter() - t1}
+        res[f"prompt_{L}"] = {
+            "ring_counts": out["ring"]["counts"], "full_counts": out["full"]["counts"],
+            "ring_s": out["ring"]["s"], "full_s": out["full"]["s"],
+            "leading_tokens_equal_ring_vs_full": [
+                _lead(a, f) for a, f in zip(out["ring"]["tokens"], out["full"]["tokens"])]}
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["phase_s"] = time.perf_counter() - t0
+    del params
+    return res
+
+
+def _greedy_logits(torch, eng, params, inputs, n, forced=None):
+    """Prefill and n - 1 decode steps through the engine's own steps:
+    (tokens [n, rows], logits [n, rows, V] on the host). Greedy, or fed
+    `forced` tokens [n, rows] (the card's) while reporting its own argmax."""
+    M = eng.M
+    rows = inputs["tokens"].shape[0] * inputs["tokens"].shape[1]
+    S = inputs["tokens"].shape[2]
+    with torch.no_grad():
+        logits, caches = eng._prefill(params, inputs)
+        lgs, own = [], []
+        for t in range(n):
+            lg = logits[:, -1].float()
+            lgs.append(lg.cpu())
+            own.append(torch.argmax(lg, dim=-1).cpu())
+            if t == n - 1:
+                break
+            tok = own[-1] if forced is None else forced[t]
+            logits = eng._decode(params, caches,
+                                 tok.to(eng.device).long().reshape(M, rows // M, 1),
+                                 S + t)
+    return torch.stack(own), torch.stack(lgs)
+
+
+def xparity_phase(torch):
+    """xparity (see the module docstring): the four configs of the new
+    serving paths in f32 at full width and cut depth, card against CPU per
+    prefill and decode step; the MoE's continuous engine against its
+    sequential one."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import build_model
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lens, new, max_len, M = [5, 70, 130, 17], [8, 6, 8, 7], 160, 2
+    out = {}
+    for arch, cut in XPARITY_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).with_updates(dtype="float32", **cut)
+        model = build_model(cfg)
+        params = init_params(model, M, 1, "cuda")
+        cpu_params = tree_map(lambda x: x.cpu(), params)
+        card = ServeEngine(model, params, M, max_len, device="cuda")
+        cpu = ServeEngine(model, cpu_params, M, max_len, device="cpu")
+        rng = np.random.default_rng(1)
+        worst, tokens = 0.0, []
+        got = dict.fromkeys(_lm_counts(torch), 0)  # the card's runs only
+        for i, (L, nt) in enumerate(zip(lens, new)):
+            inputs = {"tokens": np.zeros((M, 1, L), np.int64)}
+            inputs["tokens"][i % M, 0] = rng.integers(0, cfg.vocab_size, size=L)
+            if cfg.family == "vlm":
+                inputs["vis"] = rng.standard_normal((M, 1, cfg.vis_seq, cfg.vis_dim),
+                                                    dtype=np.float32)
+            if cfg.family == "encdec":
+                inputs["frames"] = rng.standard_normal(
+                    (M, 1, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+            staged = {k: torch.as_tensor(v) for k, v in inputs.items()}
+            _reset_counts(torch)
+            tok_c, lg_c = _greedy_logits(torch, card, params,
+                                         {k: v.cuda() for k, v in staged.items()}, nt)
+            got = {k: got[k] + v for k, v in _read_counts(torch).items()}
+            tok_h, lg_h = _greedy_logits(torch, cpu, cpu_params, staged, nt, tok_c)
+            if not torch.equal(tok_c, tok_h):
+                raise AssertionError(f"xparity {arch} request {i}: card tokens "
+                                     f"{tok_c.T.tolist()} != CPU {tok_h.T.tolist()}")
+            scale = torch.clamp(lg_h.abs().amax(-1), min=1.0)  # per step and row
+            worst = max(worst, ((lg_c - lg_h).abs().amax(-1) / scale).max().item())
+            tokens.append(tok_c[:, i % M].numpy())
+        if not worst <= XPARITY_LOGITS_TOL:
+            raise AssertionError(f"xparity {arch}: card vs CPU logits {worst} > "
+                                 f"{XPARITY_LOGITS_TOL} of their scale")
+        if not (got["k4"] == got["attn_decode"] > 0 and got["k4_plain"] == 0
+                and (got["k4_ring"] > 0) == bool(cfg.decode_long_window)
+                and (got["k4_cross"] > 0) == (cfg.family in ("vlm", "encdec"))
+                and (got["k2_cross"] > 0) == (cfg.family in ("vlm", "encdec"))):
+            raise AssertionError(f"xparity {arch}: counts {got}")
+        res = {"layers": cfg.num_layers, "split": cfg.split_layers,
+               "requests": len(lens), "tokens": int(sum(new)), "counts": got,
+               "logits_rel_err": worst}
+        if cfg.family == "moe":  # continuous == sequential on the card
+            eng = ContinuousEngine(model, params, M, max_len, slots=2,
+                                   chunk=SERVE_TRAFFIC["chunk"], device="cuda")
+            rng = np.random.default_rng(1)
+            for i, (L, nt) in enumerate(zip(lens, new)):
+                eng.submit(Request(id=i, client=i % M, new_tokens=nt,
+                                   tokens=rng.integers(0, cfg.vocab_size, size=L)))
+            cont = eng.run()
+            for i, want in enumerate(tokens):
+                if not (cont[i] == want).all():
+                    raise AssertionError(f"xparity {arch} request {i}: continuous "
+                                         f"{cont[i]} != sequential {want}")
+            res["continuous_equals_sequential"] = True
+        res["s"] = time.perf_counter() - t0
+        out[arch] = res
+        del params, cpu_params, card, cpu
         torch.cuda.empty_cache()
     return out
 
@@ -2732,7 +3128,8 @@ def ckpt_phase(torch, dev):
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
-          "hybrid-serve", "sparity", "ckpt")
+          "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
+          "swa-serve", "xparity", "ckpt")
 
 
 def _phases_wanted(argv):
@@ -2899,7 +3296,7 @@ def main() -> int:
             report["fparity"] = zoo_parity_phase(torch)
             print("FPARITY " + json.dumps(report["fparity"]), flush=True)
 
-        for key in SERVE_RUNS:
+        for key in ("ssm-serve", "hybrid-serve"):
             if want(key):
                 c = SERVE_RUNS[key]
                 print(f"[{key}] {c['arch']} full width/depth, M={c['M']}, "
@@ -2917,6 +3314,41 @@ def main() -> int:
             report["sparity"] = serve_parity_phase(torch)
             print("SPARITY " + json.dumps(report["sparity"]), flush=True)
             print(f"[sparity] {time.perf_counter() - t1:.1f} s", flush=True)
+
+        if want("moe-serve"):
+            c = SERVE_RUNS["moe-serve"]
+            print(f"[moe-serve] {c['arch']} full width/depth, M={c['M']}, continuous "
+                  "then sequential engine", flush=True)
+            report["moe-serve"] = serve_phase(torch, "moe-serve")
+            print("MOE_SERVE " + json.dumps(report["moe-serve"]), flush=True)
+            print(f"[moe-serve] {report['moe-serve']['phase_s']:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+
+        for key, c in SEQ_SERVE_RUNS.items():
+            if want(key):
+                print(f"[{key}] {c['arch']} full width/depth, M={c['M']}, b={c['b']}, "
+                      "sequential engine", flush=True)
+                report[key] = seq_serve_phase(torch, key)
+                print(f"{key.upper().replace('-', '_')} " + json.dumps(report[key]),
+                      flush=True)
+                print(f"[{key}] {report[key]['phase_s']:.1f} s", flush=True)
+                torch.cuda.empty_cache()
+
+        if want("swa-serve"):
+            print(f"[swa-serve] {SWA_SERVE['arch']} full width/depth, ring caches, "
+                  f"prompts {SWA_SERVE['prompt_lens']}", flush=True)
+            report["swa-serve"] = swa_serve_phase(torch)
+            print("SWA_SERVE " + json.dumps(report["swa-serve"]), flush=True)
+            print(f"[swa-serve] {report['swa-serve']['phase_s']:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+
+        if want("xparity"):
+            print(f"[xparity] {', '.join(XPARITY_ARCHS)} full width, cut depth, f32: "
+                  "card vs CPU logits and tokens", flush=True)
+            t1 = time.perf_counter()
+            report["xparity"] = xparity_phase(torch)
+            print("XPARITY " + json.dumps(report["xparity"]), flush=True)
+            print(f"[xparity] {time.perf_counter() - t1:.1f} s", flush=True)
 
         if want("ckpt"):
             print(f"[ckpt] {CKPT['arch']} full config, adamw, {CKPT['resume_at']} "
@@ -2943,9 +3375,20 @@ def main() -> int:
     lm_counts = report["lm_train"]["counts"]
     k2 = dict(K2, launches=lm_counts["k2"], **{key: k2_cases[0][key] for key in keys})
     k3 = dict(K3, launches=lm_counts["k3"], **{key: k3_cases[0][key] for key in keys})
-    # the serving phases' launches beside the training path's
+    # the serving phases' launches beside the training path's (K4's ring and
+    # cross decodes, K2's cross and non-causal prefill attention, apart)
     k3["serve_launches"] = {key: report[key]["counts"]["k3"] for key in SERVE_RUNS}
-    k4["serve_launches"] = {key: report[key]["counts"]["k4"] for key in SERVE_RUNS}
+    k4["serve_launches"] = {key: report[key]["counts"]["k4"]
+                            for key in ("ssm-serve", "hybrid-serve")}
+    zoo_serve = {"moe-serve": report["moe-serve"]["counts"],
+                 "vlm-serve": report["vlm-serve"]["counts"],
+                 "encdec-serve": report["encdec-serve"]["counts"],
+                 "swa-serve": report["swa-serve"]["bench"]["counts"]}
+    for key, got in zoo_serve.items():
+        k4["serve_launches"][key] = {"all": got["k4"], "ring": got["k4_ring"],
+                                     "cross": got["k4_cross"]}
+    k2["serve_launches"] = {key: {"cross": got["k2_cross"], "bidir": got["k2_bidir"]}
+                            for key, got in zoo_serve.items()}
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [k4, k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ GROUPS = (1, 2, 4, 8)  # query heads per kv head the source instantiates
 MAX_HEAD_DIM = 256  # kMaxD in the source; D must also be a multiple of 8
 SPLIT_ROWS = 64  # kSplit in the source: cache rows per split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MODES = ("self", "ring", "cross")  # the callers' uses, counted apart
 # per (device, stream): the bf16 kernel's int32 counters, one per (row, kv
 # head); zeroed once, and every launch leaves them at zero
 _COUNTERS = {}
@@ -121,10 +122,19 @@ def flash_decode(
     kv_valid,  # [B] or scalar: live cache rows per batch row
     q_offset=None,  # [B] or scalar absolute position (default kv_valid - 1)
     window: int = 0,
+    mode: str = "self",
 ) -> torch.Tensor:
     """Single-query attention over a padded cache. Row b attends cache
     slots j with j < kv_valid[b] (and j > q_offset[b] - window when
-    windowed). Returns [B, 1, Hq, D] in q's dtype."""
+    windowed). Returns [B, 1, Hq, D] in q's dtype.
+
+    `mode` names the caller's use, for the launch counters only: "self"
+    (a cache of the row's own keys at their positions), "ring" (a ring
+    cache: kv_valid = min(pos + 1, cap), no window) or "cross" (keys of
+    another sequence, kv_valid = their count). The kernel computes one
+    function for all three."""
+    if mode not in MODES:
+        raise ValueError(f"flash_decode: mode must be one of {MODES}, got {mode!r}")
     if not q.is_cuda:
         return decode_reference(q, k, v, kv_valid=kv_valid, q_offset=q_offset,
                                 window=window)
@@ -155,9 +165,16 @@ def flash_decode(
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: {msg} ({rc})")
     flash_decode.launches += 1
+    if mode == "ring":
+        flash_decode.launches_ring += 1
+    elif mode == "cross":
+        flash_decode.launches_cross += 1
     return out
 
 
-# kernel launches (the plain CPU path is not counted): a run reads it to
-# show that its decode attention went through the kernel
+# kernel launches (the plain CPU path is not counted): a run reads them to
+# show that its decode attention went through the kernel, and in which
+# mode (the self-attention launches are the rest)
 flash_decode.launches = 0
+flash_decode.launches_ring = 0
+flash_decode.launches_cross = 0

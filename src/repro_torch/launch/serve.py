@@ -2,8 +2,18 @@
 random-inits a split model from a seed) and serves batched requests with
 per-client routing through the MTSL towers. Runs on CUDA unless
 `--device cpu` is given. The default arch is mamba2-130m, as the
-reference's; the dense (gemma3-12b, ...), ssm and hybrid (zamba2-7b)
-families serve.
+reference's; every LM family serves: dense (gemma3-12b, ...; the
+sliding-window `mistral-nemo-12b-swa` on ring KV caches, full config
+only), moe, ssm, hybrid (zamba2-7b), vlm (llama-3.2-vision-11b) and
+encdec (whisper-tiny). The VLM's vision features and the
+encoder-decoder's audio frames (stub frontends, as in the reference) are
+drawn from the seed beside the prompts.
+
+Engines: `--engine continuous` (chunked prefill, slots) or `sequential`;
+by default continuous where the model allows it. The vlm and encdec
+families (no chunked prefill) and ring caches take the sequential engine
+only, and an explicit `--engine continuous` for them is refused with the
+reference's message.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
@@ -16,8 +26,11 @@ Usage:
     # timed serving smoke (prefill ms / decode tok/s / tok/s/slot):
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
         --bench --engine continuous
-    # gemma3-12b (or zamba2-7b) at full width on one card, 2 clients, 8
-    # mixed-length requests over 4 slots:
+    # the VLM and the encoder-decoder (sequential engine):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --arch whisper-tiny --prompt-len 12 --new-tokens 6
+    # gemma3-12b (or zamba2-7b, deepseek-moe-16b) at full width on one
+    # card, 2 clients, 8 mixed-length requests over 4 slots:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --no-smoke --num-clients 2 --batch-per-client 4 --slots 4 \
         --chunk 64 --prompt-len 256 --min-prompt-len 64 --new-tokens 32 \
@@ -40,7 +53,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.split import stack_towers
 from repro_torch.models.registry import build_model
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.continuous import continuous_refusal
+from repro_torch.serve.engine import ServeEngine, stage_inputs
 from repro_torch.serve.sampling import fold_in
 from repro_torch.train.checkpoint import load_checkpoint
 from repro_torch.utils.convert import params_from_jax, state_from_jax, to_serving_tree
@@ -80,6 +94,22 @@ def load_serve_params(path: str, model, device):
     return to_serving_tree(model, params)
 
 
+def seeded_inputs(cfg, M: int, b: int, prompt_len: int, seed: int) -> dict:
+    """A request batch drawn from `seed` with numpy: {"tokens" [M,b,L]}
+    plus the VLM's "vis" [M,b,vis_seq,vis_dim] or the encoder-decoder's
+    "frames" [M,b,encoder_seq,d_model] (standard normal, f32), the shapes
+    the reference's launcher draws."""
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size, size=(M, b, prompt_len))}
+    if cfg.family == "vlm":
+        inputs["vis"] = rng.standard_normal((M, b, cfg.vis_seq, cfg.vis_dim),
+                                            dtype=np.float32)
+    if cfg.family == "encdec":
+        inputs["frames"] = rng.standard_normal((M, b, cfg.encoder_seq, cfg.d_model),
+                                               dtype=np.float32)
+    return inputs
+
+
 def _prompts(cfg, n: int, prompt_len: int, min_prompt_len, seed: int):
     rng = np.random.default_rng(seed)
     lo = prompt_len if min_prompt_len is None else min_prompt_len
@@ -87,10 +117,14 @@ def _prompts(cfg, n: int, prompt_len: int, min_prompt_len, seed: int):
     return [rng.integers(0, cfg.vocab_size, size=int(L)) for L in lens]
 
 
+PROFILE_STEPS = 8  # decode steps under the profiler (its events cost host time)
+
+
 def _profile_decode(eng, submit_all) -> dict:
-    """Device-time breakdown of one more decode phase (the first wave's
-    slots decoding to completion) under torch.profiler: kernel time per
-    step by kernel name, and the share of the wall time the card was busy."""
+    """Device-time breakdown of PROFILE_STEPS more decode steps (the first
+    wave's slots, all active) under torch.profiler: kernel time per step
+    by kernel name, and the share of the wall time the card was busy. The
+    wave then finishes outside the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     submit_all()
@@ -102,7 +136,7 @@ def _profile_decode(eng, submit_all) -> dict:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.decode_all()
+        eng.decode_all(max_steps=PROFILE_STEPS)
         eng.sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     steps = max(eng.stats["decode_steps"] - steps0, 1)
@@ -135,16 +169,19 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
     in [min_prompt_len, prompt_len] (default: all prompt_len). The timed
     phases cover the first wave (as many requests as there are slots);
     the rest are then served interleaved by `run()`, and `outputs` holds
-    every request's tokens. `profile` then adds a profiled decode phase
-    (`_profile_decode`). sequential: M*b rows in lockstep."""
+    every request's tokens. `profile` then serves the requests once more
+    with a window of their decode steps profiled (`_profile_decode`).
+    sequential: M*b rows in lockstep, on the
+    generate path's inputs (`seeded_inputs`: the VLM's vision features
+    and the encoder-decoder's frames too)."""
     dev = resolve_device(device)
     n_req = M * b
     max_len = prompt_len + new_tokens
-    prompts = _prompts(cfg, n_req, prompt_len, min_prompt_len, seed)
 
     if engine_kind == "continuous":
         from repro_torch.serve.continuous import ContinuousEngine, Request
 
+        prompts = _prompts(cfg, n_req, prompt_len, min_prompt_len, seed)
         slots = slots or n_req
         chunk = min(chunk, prompt_len)
         eng = ContinuousEngine(model, params, M, max_len, slots=slots,
@@ -183,13 +220,12 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
         if min_prompt_len is not None:
             raise ValueError("the sequential engine takes one prompt length")
         engine = ServeEngine(model, params, M, max_len, device=dev)
-        tokens = torch.as_tensor(np.stack(prompts).reshape(M, b, prompt_len),
-                                 dtype=torch.int64, device=dev)
-        out = engine.generate_sequential({"tokens": tokens}, new_tokens)  # warm-up
+        inputs = stage_inputs(seeded_inputs(cfg, M, b, prompt_len, seed), dev)
+        out = engine.generate_sequential(inputs, new_tokens)  # warm-up
         _sync(dev)
         with torch.no_grad():
             t0 = time.perf_counter()
-            logits, caches = engine._prefill(engine.params, tokens)
+            logits, caches = engine._prefill(engine.params, inputs)
             tok = engine._sample(logits, 0.0, None, 0).reshape(M, b, 1)
             _sync(dev)
             t1 = time.perf_counter()
@@ -239,7 +275,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--engine", choices=("continuous", "sequential"),
-                    default="continuous")
+                    default=None, help="default: continuous where the model "
+                    "allows it (not vlm, encdec or ring caches), else sequential")
     ap.add_argument("--bench", action="store_true",
                     help="timed prefill/decode smoke instead of generation")
     ap.add_argument("--slots", type=int, default=None,
@@ -247,8 +284,8 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=8,
                     help="--bench, continuous: prefill chunk")
     ap.add_argument("--profile", action="store_true",
-                    help="--bench, continuous: add a torch.profiler decode "
-                         "phase (kernel time per step, device busy share)")
+                    help="--bench, continuous: profile PROFILE_STEPS more decode "
+                         "steps (kernel time per step, device busy share)")
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed: params init, prompts, and the engine's "
                          "per-request sampling keys")
@@ -264,8 +301,12 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     if model.tower_prefill is None:
-        raise SystemExit(f"--arch {args.arch}: serving of the {cfg.family} "
-                         "family is not ported yet")
+        raise SystemExit(f"--arch {args.arch}: the {cfg.family} family has "
+                         "no serving path")
+    why = continuous_refusal(model)
+    if args.engine == "continuous" and why:
+        raise SystemExit(f"--engine continuous: {why}")
+    engine_kind = args.engine or ("sequential" if why else "continuous")
     b = args.batch_per_client
     if args.checkpoint:
         params = load_serve_params(args.checkpoint, model, dev)
@@ -279,7 +320,7 @@ def main(argv=None):
 
     if args.bench:
         metrics = run_bench(model, params, cfg, M, b, args.prompt_len,
-                            args.new_tokens, args.engine, args.chunk,
+                            args.new_tokens, engine_kind, args.chunk,
                             device=dev, slots=args.slots,
                             min_prompt_len=args.min_prompt_len, seed=args.seed,
                             profile=args.profile)
@@ -292,10 +333,8 @@ def main(argv=None):
     max_len = args.prompt_len + args.new_tokens
     engine = ServeEngine(model, params, M, max_len, sample_seed=args.seed,
                          device=dev)
-    rng = np.random.default_rng(args.seed)
-    inputs = {"tokens": rng.integers(0, cfg.vocab_size,
-                                     size=(M, b, args.prompt_len))}
-    gen = (engine.generate if args.engine == "continuous"
+    inputs = seeded_inputs(cfg, M, b, args.prompt_len, args.seed)
+    gen = (engine.generate if engine_kind == "continuous"
            else engine.generate_sequential)
     t0 = time.perf_counter()
     out = gen(inputs, args.new_tokens, temperature=args.temperature,

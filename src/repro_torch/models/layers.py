@@ -23,10 +23,12 @@ Attention execution modes:
              rope), always through the flash-attention wrapper (K2: the
              CUDA kernel on CUDA tensors)
   - prefill: full sequence, causal (+ sliding window), returns a KV cache
+             (a ring of `window` slots under cfg.decode_long_window)
   - decode:  one token per row against the row's cache slot, per-row
-             positions; always through the flash-decode wrapper (K4)
+             positions, or cross attention of the token to `kv_src`;
+             always through the flash-decode wrapper (K4)
   - extend:  a chunk of C tokens per row appended to a partial cache
-Prefill, decode and extend are self-attention only. Decode and extend
+Prefill and extend are self-attention only. Decode and extend
 write K/V into the cache IN PLACE (the reference returns
 a new cache); decode takes an optional per-row `write` mask so frozen rows
 keep their cache, as the reference's where-masked update does.
@@ -173,12 +175,6 @@ def _out_proj(out, wo):
     return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, d).to(out.dtype)
 
 
-def _no_ring(cfg: ModelConfig):
-    if cfg.decode_long_window:
-        raise NotImplementedError(
-            "ring KV caches (decode_long_window) are not ported yet")
-
-
 def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0, kv_src=None,
                  causal: bool = True):
     """Training path over x [B,S,d]: causal self-attention (+ sliding
@@ -204,22 +200,37 @@ def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0, kv_src=None,
     return _out_proj(out, p["wo"])
 
 
+def _ring(cfg: ModelConfig, window: int, cap: int) -> bool:
+    """Whether a cache of capacity `cap` for a layer of `window` is a ring
+    of `window` slots (cfg.decode_long_window: position p lives at slot
+    p % window), as the reference decides at init and prefill."""
+    return bool(window) and bool(cfg.decode_long_window) and cap > window
+
+
 def attn_prefill(p, x, cfg: ModelConfig, *, window: int = 0, max_len: int = 0):
     """x: [B,S,d]. Returns (y [B,S,d], cache {'k','v'} [B,cap,Hkv,D]) with
     the prompt's K/V in rows 0..S-1 and zeros up to cap = max_len or S.
+    Under cfg.decode_long_window a windowed layer whose cap exceeds the
+    window gets a ring of `window` slots instead: position p at slot
+    p % window, so for S >= window the last `window` keys rolled by
+    S % window, for S < window the prompt's keys zero-padded.
 
     The attention is the plain `mha_reference` on every device, as in the
     reference (its prefill never reaches its kernel either), though K2
     computes this function: only the sequential engine prefills, and it is
     the continuous engine's parity oracle, not its path. Moving it onto K2
     would make the two engines' attention round apart."""
-    _no_ring(cfg)
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     S = x.shape[-2]
     q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device))
     out = mha_reference(q, k, v, causal=True, window=window)
     y = _out_proj(out, p["wo"])
-    pad = (max_len or S) - S
+    cap = max_len or S
+    if _ring(cfg, window, cap) and S >= window:
+        shift = S % window
+        return y, {"k": torch.roll(k[:, -window:], shift, dims=1),
+                   "v": torch.roll(v[:, -window:], shift, dims=1)}
+    pad = (window if _ring(cfg, window, cap) else cap) - S
     return y, {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
 
@@ -234,25 +245,47 @@ def _write_rows(c, rows, idx, new, write):
 
 
 def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, *, window: int = 0,
-                write: Optional[torch.Tensor] = None):
+                write: Optional[torch.Tensor] = None, kv_src=None):
     """One-token decode. x_t: [B,1,d]; pos: int or per-row [B] positions
     (slot-based continuous batching: each row sits at its own depth in its
     own cache slot). cache: {'k','v'} [B,cap,Hkv,D], updated in place at
-    row b's position pos[b] where write[b] (all rows when write is None).
-    Returns y [B,1,d]."""
+    row b's slot for pos[b] where write[b] (all rows when write is None).
+    Returns y [B,1,d].
+
+    The cache is a ring iff window and cap == window, as the reference
+    decides (without reading cfg.decode_long_window): position p at slot
+    p % cap, and the query sees the min(p + 1, cap) live slots, no window.
+    Otherwise slot p, the first p + 1 slots, the window from p.
+
+    With kv_src [B,Sk,d]: cross attention of the one query to kv_src's
+    keys and values (no rope, no cache, every key visible; cache, pos,
+    window and write are not read). The reference runs `mha_reference`
+    here; the port runs the same function through the flash-decode
+    wrapper with kv_valid = Sk. Every call goes through the flash-decode
+    wrapper (K4: the CUDA kernel on CUDA tensors), counted by mode."""
     attn_decode.calls += 1
     h = rmsnorm(p["norm"], x_t, cfg.norm_eps)
     B = x_t.shape[0]
+    if kv_src is not None:
+        q, k, v = _project_qkv(p, h, cfg, None, kv_src)
+        out = flash_decode(q, k, v, kv_valid=k.shape[1], mode="cross")
+        return _out_proj(out, p["wo"])
     pos_rows = per_row(pos, B, x_t.device)
     q, k, v = _project_qkv(p, h, cfg, pos_rows[:, None])
     cap = cache["k"].shape[1]
     rows = torch.arange(B, device=x_t.device)
+    ring = bool(window) and cap == window
     # a frozen row may sit at pos == cap; its (masked) write is clamped
-    idx = pos_rows.long().clamp(max=cap - 1)
+    idx = pos_rows.long() % cap if ring else pos_rows.long().clamp(max=cap - 1)
     _write_rows(cache["k"], rows, idx, k[:, 0], write)
     _write_rows(cache["v"], rows, idx, v[:, 0], write)
-    out = flash_decode(q, cache["k"], cache["v"], kv_valid=pos_rows + 1,
-                       q_offset=pos_rows, window=window)
+    if ring:
+        out = flash_decode(q, cache["k"], cache["v"],
+                           kv_valid=torch.clamp(pos_rows + 1, max=cap),
+                           mode="ring")
+    else:
+        out = flash_decode(q, cache["k"], cache["v"], kv_valid=pos_rows + 1,
+                           q_offset=pos_rows, window=window)
     return _out_proj(out, p["wo"])
 
 
@@ -267,11 +300,15 @@ def attn_extend(p, x_c, cache, start, cfg: ModelConfig, *, window: int = 0):
     tokens already cached per row (start + C <= cap). Rows past a
     request's real prompt length ride along as padding: their K/V land
     above every real query's causal horizon and are overwritten by later
-    writes at the true positions. Returns y [B,C,d].
+    writes at the true positions. Ring caches are refused, as in the
+    reference. Returns y [B,C,d].
 
     The attention is the plain `mha_reference` on every device: queries at
     an offset against a partly filled cache, a function no TPU kernel
     computes (the reference runs `mha_reference` here too)."""
+    if window and cache["k"].shape[1] == window and cfg.decode_long_window:
+        raise ValueError("attn_extend does not support ring KV caches "
+                         "(decode_long_window); use full-capacity caches")
     h = rmsnorm(p["norm"], x_c, cfg.norm_eps)
     B, C, _ = x_c.shape
     start_rows = per_row(start, B, x_c.device).long()
@@ -285,8 +322,12 @@ def attn_extend(p, x_c, cache, start, cfg: ModelConfig, *, window: int = 0):
     return _out_proj(out, p["wo"])
 
 
-def init_attn_cache(cfg: ModelConfig, batch: int, cap: int, device):
-    _no_ring(cfg)
+def init_attn_cache(cfg: ModelConfig, batch: int, cap: int, device,
+                    window: int = 0):
+    """Zero K/V buffers [batch, cap, Hkv, D] in cfg.dtype; a ring of
+    `window` slots where `_ring` says so."""
+    if _ring(cfg, window, cap):
+        cap = window
     shape = (batch, cap, cfg.num_kv_heads, cfg.head_dim)
     dt = compute_dtype(cfg)
     # two buffers: caches are written in place

@@ -7,7 +7,10 @@ renormalised gates), a stable sort of the (token, choice) rows by expert,
 each expert taking the first C rows of its segment (later rows are
 dropped), the three expert products as batched matmuls over the `[E, d, f]`
 stacks (outside any kernel, as the reference leaves them to XLA), and the
-gate-weighted combine.
+gate-weighted combine. Dispatch groups (cfg.moe_groups, or one per row of
+a decode over slots) are dispatched together: their sorts and gathers are
+batched over the group axis, and each expert's product takes every
+group's slots at once, so the expert weights are read once per call.
 
 Seeded runs are bit-reproducible on the card, so nothing here sums through
 atomics in an order that changes between runs. The reference scatters
@@ -23,19 +26,22 @@ reads.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import param_dtype, rmsnorm, rmsnorm_params
+from repro_torch.models.layers import rmsnorm, rmsnorm_params, weight_dtype
 from repro_torch.nn import param
 
 
-def moe_params(gen, cfg: ModelConfig):
-    """The training tree (the MoE block has no serving path yet): the router
-    in f32, the expert stacks [E, d, f] / [E, f, d] in cfg.param_dtype."""
+def moe_params(gen, cfg: ModelConfig, serving: bool = False):
+    """The router in f32 (the reference routes in f32), the expert stacks
+    [E, d, f] / [E, f, d] and the shared experts in cfg.param_dtype, or in
+    cfg.dtype in a serving tree (`models/layers.py`)."""
     d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    dt = param_dtype(cfg)
+    dt = weight_dtype(cfg, serving)
     p = {
         "router": param(gen, (d, E), dtype=torch.float32),
         "wg": param(gen, (E, d, f), dtype=dt, fan_in=d),
@@ -59,84 +65,87 @@ def _capacity(T: int, E: int, k: int, factor: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _dispatch_group(p, ht, cfg: ModelConfig, C: int):
-    """Route one token group [T, d] through the experts. Returns (y, aux)."""
+def _dispatch(p, ht, cfg: ModelConfig, C: int):
+    """Route G independent token groups ht [G, T, d] through the experts,
+    each group with its own capacity C per expert (the reference's vmap
+    over groups). Returns (y [G, T, d], aux [G])."""
     cdt = ht.dtype
-    T, d = ht.shape
+    G, T, d = ht.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dev = ht.device
+    grp = torch.arange(G, device=dev)[:, None]
 
     # ---- router (f32)
-    probs = torch.softmax(ht.float() @ p["router"].float(), dim=-1)  # [T, E]
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [T, k]
+    probs = torch.softmax(ht.float() @ p["router"].float(), dim=-1)  # [G, T, E]
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [G, T, k]
     gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
 
     # ---- load-balance aux loss (Switch-style)
-    me = probs.mean(0)  # [E] mean router probability
-    ce = F.one_hot(gate_idx, E).float().sum(1).mean(0)  # [E] share routed
-    aux = E * (me * ce).sum()
+    me = probs.mean(1)  # [G, E] mean router probability
+    ce = F.one_hot(gate_idx, E).float().sum(2).mean(1)  # [G, E] share routed
+    aux = E * (me * ce).sum(-1)
 
-    # ---- stable sort of the T*k rows by expert; expert e takes the first
-    # C rows of its segment
-    flat_e = gate_idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    e_sorted = flat_e[order]
-    experts = torch.arange(E, device=dev)
-    seg_start = torch.searchsorted(e_sorted, experts, side="left")  # [E]
+    # ---- stable sort of each group's T*k rows by expert; expert e takes
+    # the first C rows of its segment
+    flat_e = gate_idx.reshape(G, T * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    e_sorted = flat_e[grp, order]
+    experts = torch.arange(E, device=dev).expand(G, E).contiguous()
+    seg_start = torch.searchsorted(e_sorted, experts, side="left")  # [G, E]
     seg_count = torch.searchsorted(e_sorted, experts, side="right") - seg_start
-    pos_in_e = torch.arange(T * k, device=dev) - seg_start[e_sorted]
+    pos_in_e = torch.arange(T * k, device=dev) - seg_start[grp, e_sorted]
     keep = pos_in_e < C
     if moe_forward.tally is not None:
         kept = keep.sum()
-        moe_forward.tally.append(torch.stack([kept, kept.new_full((), T * k)]))
+        moe_forward.tally.append(torch.stack([kept, kept.new_full((), G * T * k)]))
 
-    # dispatch: slot (e, c) holds sorted row seg_start[e] + c, or the zero
-    # pad row T*k when expert e has fewer than c + 1 rows
+    # dispatch: slot (e, c) of a group holds its sorted row seg_start[e] +
+    # c, or the zero pad row T*k when expert e has fewer than c + 1 rows
     c_idx = torch.arange(C, device=dev)
-    filled = c_idx[None, :] < seg_count[:, None]  # [E, C]
-    row_of = torch.where(filled, seg_start[:, None] + c_idx[None, :], T * k)
-    x_rows = ht[:, None, :].expand(T, k, d).reshape(T * k, d)[order]
-    x_pad = torch.cat([x_rows, x_rows.new_zeros(1, d)])
-    expert_in = x_pad[row_of.reshape(-1)].reshape(E, C, d)
+    filled = c_idx < seg_count[..., None]  # [G, E, C]
+    row_of = torch.where(filled, seg_start[..., None] + c_idx, T * k)
+    x_rows = ht[:, :, None, :].expand(G, T, k, d).reshape(G, T * k, d)[grp, order]
+    x_pad = torch.cat([x_rows, x_rows.new_zeros(G, 1, d)], dim=1)
+    expert_in = x_pad[grp, row_of.reshape(G, E * C)].reshape(G, E, C, d)
+    # every group's rows of expert e in one product: [E, G*C, d]
+    expert_in = expert_in.transpose(0, 1).reshape(E, G * C, d)
 
     # ---- expert FFN (batched matmuls over the stacked weights)
     g = torch.bmm(expert_in, p["wg"].to(cdt))
     u = torch.bmm(expert_in, p["wu"].to(cdt))
-    out = torch.bmm(F.silu(g) * u, p["wd"].to(cdt)).reshape(E * C, d)
+    out = torch.bmm(F.silu(g) * u, p["wd"].to(cdt))
+    out = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
 
     # ---- combine: row r = (t, j) reads its slot (a zero pad row when
     # dropped), weighted by its gate; each token sums its k rows in order
     slot_sorted = torch.where(keep, e_sorted * C + pos_in_e, E * C)
-    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    out_pad = torch.cat([out, out.new_zeros(1, d)])
-    rows = out_pad[slot].reshape(T, k, d)
-    y = (rows * gate_vals.to(cdt)[..., None]).sum(1)
+    slot = torch.empty_like(slot_sorted).scatter_(1, order, slot_sorted)
+    out_pad = torch.cat([out, out.new_zeros(G, 1, d)], dim=1)
+    rows = out_pad[grp, slot].reshape(G, T, k, d)
+    y = (rows * gate_vals.to(cdt)[..., None]).sum(2)
     return y, aux
 
 
-def moe_forward(p, x, cfg: ModelConfig):
+def moe_forward(p, x, cfg: ModelConfig, groups: Optional[int] = None):
     """x: [..., S, d] -> (y, aux_loss). Flattens leading dims into tokens.
 
     cfg.moe_groups > 1 splits the tokens into independent dispatch groups,
-    each with its own capacity (aux is their mean), as the reference."""
+    each with its own capacity (aux is their mean), as the reference.
+    `groups` overrides it: a decode over B slots whose rows are separate
+    requests passes groups=B, so each token is dispatched alone, as the
+    reference's continuous engine vmaps its tower decode over slots."""
     orig_shape = x.shape
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     d = orig_shape[-1]
     ht = h.reshape(-1, d)  # [T, d]
     T = ht.shape[0]
     E, k = cfg.num_experts, cfg.experts_per_token
-    G = max(cfg.moe_groups, 1)
+    G = max(cfg.moe_groups, 1) if groups is None else groups
     if T % G != 0:
         G = 1
-
-    if G == 1:
-        y, aux = _dispatch_group(p, ht, cfg, _capacity(T, E, k, cfg.capacity_factor))
-    else:
-        Tg = T // G
-        C = _capacity(Tg, E, k, cfg.capacity_factor)
-        parts = [_dispatch_group(p, hg, cfg, C) for hg in ht.reshape(G, Tg, d)]
-        y = torch.cat([yg for yg, _ in parts])
-        aux = torch.stack([a for _, a in parts]).mean()
+    C = _capacity(T // G, E, k, cfg.capacity_factor)
+    y, aux = _dispatch(p, ht.reshape(G, T // G, d), cfg, C)
+    y, aux = y.reshape(T, d), aux.mean()
 
     # ---- shared experts (dense path)
     if "shared" in p:
@@ -147,7 +156,7 @@ def moe_forward(p, x, cfg: ModelConfig):
     return y.reshape(orig_shape), aux
 
 
-# dispatch statistics: while a list, each dispatch group appends a [2]
-# int64 tensor (rows kept, rows routed) on the input's device, without a
-# host sync; None (the default) records nothing
+# dispatch statistics: while a list, each call appends a [2] int64 tensor
+# (rows kept, rows routed, over its groups) on the input's device, without
+# a host sync; None (the default) records nothing
 moe_forward.tally = None

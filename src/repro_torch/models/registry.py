@@ -26,25 +26,33 @@ encoder norm, and the decoder (embedding, `cross` blocks over the encoder's
 output, norm, head). The MoE blocks' aux loss comes back from
 server_forward (the tower's is dropped, as the reference drops it).
 
-Serving hooks, for the "dense", "ssm" and "hybrid" families:
+Serving hooks, for every LM family, pass the reference's dicts:
 
-    tower_prefill(tp, tokens [B,S], max_len)      -> (h [B,S,d], tcache)
-    server_prefill(sp, h, max_len)                -> (logits [B,1,V] f32, scache)
-    tower_decode(tp, tokens [B,1], tcache, pos, write=None)  -> h [B,1,d]
-    server_decode(sp, h, scache, pos, write=None) -> logits [B,1,V] f32
-    tower_extend(tp, tokens [B,C], tcache, start, n_valid) -> h [B,C,d]
-    server_extend(sp, h, scache, start, n_valid)  -> logits [B,1,V] f32
+    tower_prefill(tp, inputs, max_len)           -> (smashed, tcache)
+    server_prefill(sp, smashed, max_len)         -> (logits [B,1,V] f32, scache)
+    tower_decode(tp, inputs_t, tcache, pos, write=None, rows_alone=False)
+                                                 -> smashed_t
+    server_decode(sp, smashed_t, scache, pos, write=None) -> logits [B,1,V] f32
+    tower_extend(tp, inputs_c, tcache, start, n_valid) -> smashed_c
+    server_extend(sp, smashed_c, scache, start, n_valid) -> logits [B,1,V] f32
 
-`n_valid` counts the real tokens of the chunk: the Mamba blocks of the
-ssm and hybrid stacks neutralise the padded steps with it (an int, or a
-[B] tensor of one per row), and server_extend takes the logits at the
-last real token (an int: the continuous engine extends one request at a
-time). `write` ([B] bool) freezes the caches of the rows where it is
-False. In serving, the reference passes and returns `{"h": ...}` smashed
-dicts and new caches; the port passes the activation tensor and updates
-caches in place. Training keeps the reference's `{"h": ...}` dicts. The
-serving of the moe, vlm and encdec families is not ported: their hooks
-are None.
+`inputs` is {"tokens": [B,S]} plus the VLM's {"vis"} or the
+encoder-decoder's {"frames"}; `inputs_t` / `inputs_c` carry the next
+token(s), and the VLM's decode also the {"vis_proj"} its prefill
+uploaded (the engines keep it beside the caches). The smashed dicts are
+{"h"} (+ "vis_proj" for the VLM); the encoder-decoder's tower uploads
+{"h", "tokens"} at prefill and passes {"tokens"} through at decode, and
+its server caches {"dec": the decoder's caches, "enc_out": the
+encoder's output}. `n_valid` counts the real tokens of the chunk: the
+Mamba blocks of the ssm and hybrid stacks neutralise the padded steps
+with it (an int, or a [B] tensor of one per row), and server_extend takes
+the logits at the last real token (an int: the continuous engine extends
+one request at a time). `write` ([B] bool) freezes the caches of the rows
+where it is False. `rows_alone` dispatches each row's token through the
+tower's MoE layers as its own group (the reference's continuous engine
+vmaps the tower decode over slots). The reference returns new caches; the
+port updates them in place. The VLM and the encoder-decoder have no
+extend (their hooks are None), as in the reference.
 
 A decoder's `init_tower(gen, serving=False)` / `init_server(gen,
 serving=False)` give the training tree (every leaf in cfg.param_dtype, as
@@ -54,6 +62,8 @@ the reference's); `serving=True` gives the serving tree of the engines
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -68,14 +78,15 @@ class Model(NamedTuple):
     # training
     tower_forward: Optional[Callable] = None
     server_forward: Optional[Callable] = None
-    # serving (dense, ssm and hybrid families; decoder inits take
-    # serving=True)
+    # serving (every LM family; inits take serving=True)
     tower_prefill: Optional[Callable] = None
     server_prefill: Optional[Callable] = None
     tower_decode: Optional[Callable] = None
     server_decode: Optional[Callable] = None
     init_tower_cache: Optional[Callable] = None  # (batch, cap, device) -> cache
     init_server_cache: Optional[Callable] = None
+    # chunked-prefill continuation (continuous batching); None when the
+    # family cannot extend a partial cache (vlm, encdec)
     tower_extend: Optional[Callable] = None
     server_extend: Optional[Callable] = None
 
@@ -110,7 +121,7 @@ def _decoder_model(cfg: ModelConfig) -> Model:
              "blocks": tower_stack.init(gen, serving)}
         if is_vlm:
             p["projector"] = {"w": param(gen, (cfg.vis_dim, cfg.d_model),
-                                         dtype=L.param_dtype(cfg))}
+                                         dtype=L.weight_dtype(cfg, serving))}
         return p
 
     def init_server(gen, serving: bool = False):
@@ -125,53 +136,66 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         x = L.rmsnorm(sp["norm"], x, cfg.norm_eps)
         return L.logits_f32(x, sp["head"]["w"])
 
-    def tower_forward(tp, inputs):
+    def _embed_and_project(tp, inputs):
+        """The embedded tokens, and for the VLM the projected vision
+        features {"vis_proj"} that the tower uploads."""
         x = L.embed(tp["embed"], inputs["tokens"], cfg)
-        extras = {}
-        if is_vlm:
-            extras["vis_proj"] = (inputs["vis"].to(x.dtype)
-                                  @ tp["projector"]["w"].to(x.dtype))
-        ctx = {"xattn": extras["vis_proj"]} if is_vlm else {}
-        x, _ = tower_stack.forward(tp["blocks"], x, ctx)
+        if not is_vlm:
+            return x, {}
+        return x, {"vis_proj": inputs["vis"].to(x.dtype)
+                   @ tp["projector"]["w"].to(x.dtype)}
+
+    def _xattn(smashed):
+        return {"xattn": smashed["vis_proj"]} if is_vlm else {}
+
+    def tower_forward(tp, inputs):
+        x, extras = _embed_and_project(tp, inputs)
+        x, _ = tower_stack.forward(tp["blocks"], x, _xattn(extras))
         return {"h": x, **extras}
 
     def server_forward(sp, smashed):
-        ctx = {"xattn": smashed["vis_proj"]} if is_vlm else {}
-        x, aux = server_stack.forward(sp["blocks"], smashed["h"], ctx)
+        x, aux = server_stack.forward(sp["blocks"], smashed["h"], _xattn(smashed))
         return _head(sp, x), aux
 
-    def tower_prefill(tp, tokens, max_len):
-        x = L.embed(tp["embed"], tokens, cfg)
-        return tower_stack.prefill(tp["blocks"], x, {"max_len": max_len})
+    def tower_prefill(tp, inputs, max_len):
+        x, extras = _embed_and_project(tp, inputs)
+        x, cache = tower_stack.prefill(tp["blocks"], x,
+                                       {"max_len": max_len, **_xattn(extras)})
+        return {"h": x, **extras}, cache
 
-    def server_prefill(sp, h, max_len):
-        x, cache = server_stack.prefill(sp["blocks"], h, {"max_len": max_len})
+    def server_prefill(sp, smashed, max_len):
+        x, cache = server_stack.prefill(sp["blocks"], smashed["h"],
+                                        {"max_len": max_len, **_xattn(smashed)})
         return _head(sp, x[:, -1:]), cache
 
-    def tower_decode(tp, tokens, tcache, pos, write=None):
-        x = L.embed(tp["embed"], tokens, cfg)  # [B,1]
-        return tower_stack.decode(tp["blocks"], x, tcache,
-                                  {"pos": pos, "write": write})
+    def tower_decode(tp, inputs_t, tcache, pos, write=None, rows_alone=False):
+        x = L.embed(tp["embed"], inputs_t["tokens"], cfg)  # [B,1]
+        extras = {"vis_proj": inputs_t["vis_proj"]} if is_vlm else {}
+        x = tower_stack.decode(tp["blocks"], x, tcache,
+                               {"pos": pos, "write": write,
+                                "rows_alone": rows_alone, **_xattn(extras)})
+        return {"h": x, **extras}
 
-    def server_decode(sp, h, scache, pos, write=None):
-        x = server_stack.decode(sp["blocks"], h, scache,
-                                {"pos": pos, "write": write})
+    def server_decode(sp, smashed_t, scache, pos, write=None):
+        x = server_stack.decode(sp["blocks"], smashed_t["h"], scache,
+                                {"pos": pos, "write": write, **_xattn(smashed_t)})
         return _head(sp, x)
 
-    def tower_extend(tp, tokens, tcache, start, n_valid):
-        x = L.embed(tp["embed"], tokens, cfg)  # [B,C]
-        return tower_stack.extend(tp["blocks"], x, tcache,
-                                  {"start": start, "n_valid": n_valid})
+    def tower_extend(tp, inputs_c, tcache, start, n_valid):
+        x = L.embed(tp["embed"], inputs_c["tokens"], cfg)  # [B,C]
+        x = tower_stack.extend(tp["blocks"], x, tcache,
+                               {"start": start, "n_valid": n_valid})
+        return {"h": x}
 
-    def server_extend(sp, h, scache, start, n_valid):
-        x = server_stack.extend(sp["blocks"], h, scache,
+    def server_extend(sp, smashed_c, scache, start, n_valid):
+        x = server_stack.extend(sp["blocks"], smashed_c["h"], scache,
                                 {"start": start, "n_valid": n_valid})
         # logits for each row's LAST REAL chunk token (padded tail is garbage)
         x = x[:, max(int(n_valid) - 1, 0)][:, None]
         return _head(sp, x)
 
-    if cfg.family in ("moe", "vlm"):  # serving not ported
-        return Model(cfg, init_tower, init_server, tower_forward, server_forward)
+    can_extend = (not is_vlm and tower_stack.extend is not None
+                  and server_stack.extend is not None)
     return Model(
         cfg=cfg,
         init_tower=init_tower,
@@ -184,8 +208,8 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         server_decode=server_decode,
         init_tower_cache=tower_stack.init_cache,
         init_server_cache=server_stack.init_cache,
-        tower_extend=tower_extend,
-        server_extend=server_extend,
+        tower_extend=tower_extend if can_extend else None,
+        server_extend=server_extend if can_extend else None,
     )
 
 
@@ -223,14 +247,56 @@ def _encdec_model(cfg: ModelConfig) -> Model:
             h, _ = enc_top_stack.forward(sp["enc_blocks"], h, {})
         return L.rmsnorm(sp["enc_norm"], h, cfg.norm_eps)
 
+    def _head(sp, y):
+        y = L.rmsnorm(sp["norm"], y, cfg.norm_eps)
+        return L.logits_f32(y, sp["head"]["w"])
+
     def server_forward(sp, smashed):
         enc_out = _encode_top(sp, smashed["h"])
         y = L.embed(sp["dec_embed"], smashed["tokens"], cfg)
         y, aux = dec_stack.forward(sp["dec_blocks"], y, {"xattn": enc_out})
-        y = L.rmsnorm(sp["norm"], y, cfg.norm_eps)
-        return L.logits_f32(y, sp["head"]["w"]), aux
+        return _head(sp, y), aux
 
-    return Model(cfg, init_tower, init_server, tower_forward, server_forward)
+    def tower_prefill(tp, inputs, max_len):
+        # the tower's encoder blocks run once over the frames
+        return tower_forward(tp, inputs), {}
+
+    def server_prefill(sp, smashed, max_len):
+        enc_out = _encode_top(sp, smashed["h"])
+        y = L.embed(sp["dec_embed"], smashed["tokens"], cfg)
+        y, cache = dec_stack.prefill(sp["dec_blocks"], y,
+                                     {"xattn": enc_out, "max_len": max_len})
+        return _head(sp, y[:, -1:]), {"dec": cache, "enc_out": enc_out}
+
+    def tower_decode(tp, inputs_t, tcache, pos, write=None, rows_alone=False):
+        # the encoder is static during decode; only the next token travels
+        return {"tokens": inputs_t["tokens"]}
+
+    def server_decode(sp, smashed_t, scache, pos, write=None):
+        y = L.embed(sp["dec_embed"], smashed_t["tokens"], cfg)  # [B,1]
+        y = dec_stack.decode(sp["dec_blocks"], y, scache["dec"],
+                             {"xattn": scache["enc_out"], "pos": pos,
+                              "write": write})
+        return _head(sp, y)
+
+    def init_server_cache(batch, cap, device):
+        return {"dec": dec_stack.init_cache(batch, cap, device),
+                "enc_out": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                       dtype=L.compute_dtype(cfg), device=device)}
+
+    return Model(
+        cfg=cfg,
+        init_tower=init_tower,
+        init_server=init_server,
+        tower_forward=tower_forward,
+        server_forward=server_forward,
+        tower_prefill=tower_prefill,
+        server_prefill=server_prefill,
+        tower_decode=tower_decode,
+        server_decode=server_decode,
+        init_tower_cache=lambda batch, cap, device: {},
+        init_server_cache=init_server_cache,
+    )
 
 
 def build_model(cfg: ModelConfig) -> Model:

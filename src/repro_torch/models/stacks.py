@@ -33,12 +33,13 @@ Zamba2's *shared* attention block is loop-invariant: its parameters live
 at the stack level ("shared") and reach each `shared_attn` layer through
 ctx["shared"] (in every mode: the stack puts them there).
 
-Serving (prefill / decode / extend / caches) is ported for the `full`,
-`swa`, `mamba` and `shared_attn` kinds; `bidir`, `cross`, `moe` and
-`dense_moe_lead` have none yet.
+Serving (prefill / decode / caches) is ported for every kind but
+`bidir` (the encoder blocks, which serving runs through their forward);
+extend for every kind but `bidir` and `cross`, as in the reference.
 
-ctx keys: "shared" and "xattn" (forward), "max_len" (prefill), "pos" and
-optional "write" (decode), "start" and "n_valid" (extend).
+ctx keys: "shared" (every mode), "xattn" (forward, prefill, decode),
+"max_len" (prefill), "pos" and optional "write" and "rows_alone"
+(decode), "start" and "n_valid" (extend).
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def _attn_mlp_block(cfg: ModelConfig, window: int, causal: bool = True) -> Block
         x = x + L.attn_forward(p["attn"], x, cfg, window=window, causal=causal)
         return x + L.mlp_forward(p["mlp"], x, cfg), 0.0
 
-    if not causal:  # the encoder blocks' serving is not ported
+    if not causal:  # the encoder blocks run their forward when served
         return Block(init, forward)
 
     def prefill(p, x, ctx):
@@ -96,7 +97,7 @@ def _attn_mlp_block(cfg: ModelConfig, window: int, causal: bool = True) -> Block
         return x_t + L.mlp_forward(p["mlp"], x_t, cfg)
 
     def init_cache(batch, cap, device):
-        return L.init_attn_cache(cfg, batch, cap, device)
+        return L.init_attn_cache(cfg, batch, cap, device, window=window)
 
     def extend(p, x_c, cache, ctx):
         x_c = x_c + L.attn_extend(p["attn"], x_c, cache, ctx["start"], cfg,
@@ -108,7 +109,10 @@ def _attn_mlp_block(cfg: ModelConfig, window: int, causal: bool = True) -> Block
 
 def _cross_block(cfg: ModelConfig) -> Block:
     """Causal self-attention + cross attention to ctx["xattn"] + MLP (the
-    VLM's image layers, the encoder-decoder's decoder blocks)."""
+    VLM's image layers, the encoder-decoder's decoder blocks). Served with
+    a KV cache for the self-attention only: the cross attention projects
+    ctx["xattn"] again at every step, as the reference does. No extend, as
+    in the reference."""
 
     def init(gen, serving):
         return {"attn": L.attn_params(gen, cfg, serving),
@@ -120,20 +124,59 @@ def _cross_block(cfg: ModelConfig) -> Block:
         x = x + L.attn_forward(p["xattn"], x, cfg, kv_src=ctx["xattn"])
         return x + L.mlp_forward(p["mlp"], x, cfg), 0.0
 
-    return Block(init, forward)
+    def prefill(p, x, ctx):
+        a, cache = L.attn_prefill(p["attn"], x, cfg, max_len=ctx["max_len"])
+        x = x + a
+        x = x + L.attn_forward(p["xattn"], x, cfg, kv_src=ctx["xattn"])
+        return x + L.mlp_forward(p["mlp"], x, cfg), cache
+
+    def decode(p, x_t, cache, ctx):
+        x_t = x_t + L.attn_decode(p["attn"], x_t, cache, ctx["pos"], cfg,
+                                  write=ctx.get("write"))
+        x_t = x_t + L.attn_decode(p["xattn"], x_t, None, None, cfg,
+                                  kv_src=ctx["xattn"])
+        return x_t + L.mlp_forward(p["mlp"], x_t, cfg)
+
+    def init_cache(batch, cap, device):
+        return L.init_attn_cache(cfg, batch, cap, device)
+
+    return Block(init, forward, prefill, decode, init_cache)
 
 
 def _moe_block(cfg: ModelConfig) -> Block:
+    """Causal self-attention + the MoE layer. The MoE dispatches a call's
+    tokens as one group (cfg.moe_groups aside), except in a decode whose
+    ctx["rows_alone"] is set: each row's token is then a group of its own,
+    as when the reference vmaps a decode over slots."""
+
     def init(gen, serving):
         return {"attn": L.attn_params(gen, cfg, serving),
-                "moe": moe_params(gen, cfg)}
+                "moe": moe_params(gen, cfg, serving)}
 
     def forward(p, x, ctx):
         x = x + L.attn_forward(p["attn"], x, cfg)
         y, aux = moe_forward(p["moe"], x, cfg)
         return x + y, aux * cfg.router_aux_weight
 
-    return Block(init, forward)
+    def prefill(p, x, ctx):
+        a, cache = L.attn_prefill(p["attn"], x, cfg, max_len=ctx["max_len"])
+        x = x + a
+        return x + moe_forward(p["moe"], x, cfg)[0], cache
+
+    def decode(p, x_t, cache, ctx):
+        x_t = x_t + L.attn_decode(p["attn"], x_t, cache, ctx["pos"], cfg,
+                                  write=ctx.get("write"))
+        groups = x_t.shape[0] if ctx.get("rows_alone") else None
+        return x_t + moe_forward(p["moe"], x_t, cfg, groups=groups)[0]
+
+    def init_cache(batch, cap, device):
+        return L.init_attn_cache(cfg, batch, cap, device)
+
+    def extend(p, x_c, cache, ctx):
+        x_c = x_c + L.attn_extend(p["attn"], x_c, cache, ctx["start"], cfg)
+        return x_c + moe_forward(p["moe"], x_c, cfg)[0]
+
+    return Block(init, forward, prefill, decode, init_cache, extend)
 
 
 def _mamba_block(cfg: ModelConfig) -> Block:
@@ -250,7 +293,8 @@ class Stack(NamedTuple):
     forward: Callable  # (p, x, ctx) -> (x, aux)
     prefill: Callable  # (p, x, ctx) -> (x, caches)
     decode: Callable  # (p, x_t, caches, ctx) -> x_t
-    extend: Callable  # (p, x_c, caches, ctx) -> x_c
+    # chunked-prefill continuation; None when any layer kind lacks extend
+    extend: Optional[Callable]  # (p, x_c, caches, ctx) -> x_c
     init_cache: Callable  # (batch, cap, device) -> caches
 
 
@@ -267,12 +311,15 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
     """A stack over `kinds`. Where `kinds` holds `shared_attn` layers, a
     stack-level shared attention+MLP block is created and passed to the
     layers through ctx["shared"]. A stack with a kind that has no serving
-    path refuses prefill, decode, extend and init_cache."""
+    path (`bidir`) refuses prefill, decode and init_cache; its extend,
+    like that of a stack with a kind that cannot extend (`cross`), is
+    None, as the reference's."""
     has_shared = "shared_attn" in kinds
     segments = stack_segments(cfg, kinds)
     seg_blocks = [tuple(make_block(cfg, k) for k in unit) for unit, _ in segments]
     seg_repeats = [r for _, r in segments]
     serves = all(b.prefill is not None for blocks in seg_blocks for b in blocks)
+    can_extend = all(b.extend is not None for blocks in seg_blocks for b in blocks)
 
     def _serving(fn):
         if serves:
@@ -280,7 +327,7 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
 
         def refuse(*args, **kwargs):
             raise NotImplementedError(
-                f"serving of block kinds {sorted(set(kinds))} is not ported yet")
+                f"block kinds {sorted(set(kinds))} have no serving path")
         return refuse
 
     def _units(tree, si):
@@ -363,4 +410,4 @@ def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:
         return caches
 
     return Stack(init, forward, _serving(prefill), _serving(decode),
-                 _serving(extend), _serving(init_cache))
+                 extend if can_extend else None, _serving(init_cache))

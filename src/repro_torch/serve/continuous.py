@@ -18,8 +18,12 @@ chunks, decode, and leave.
     slots with the view of tower m (static shapes, rows independent) and
     only the rows whose client is m are kept; the reference instead
     gathers a copy of each slot's tower per step, which at full width
-    would copy every tower once per slot per step. One batched server
-    decode over all slots follows, then sampling on the device (no
+    would copy every tower once per slot per step. The tower's MoE layers
+    dispatch each slot's token alone (`rows_alone`), as the reference's
+    batch-1 tower decode under vmap does, so the rows of other clients
+    never take an expert's capacity. One batched server decode over all
+    slots follows (its MoE layers dispatch the slots together, as the
+    reference's server decode does), then sampling on the device (no
     device->host sync per token). Inactive slots ride along, but their
     caches are frozen: decode writes K/V, conv tails and SSM states in
     place only for active rows (for the tower, active rows of that client).
@@ -37,8 +41,11 @@ chunks, decode, and leave.
     device; finished rows are copied out on the device and brought to the
     host once at the end.
 
-Greedy decoding is token-for-token identical to the sequential engine per
-request. Caches are written in place (the reference's are immutable); the
+Families without chunked prefill (vlm, encdec) and ring KV caches are
+refused, as in the reference: `ServeEngine.generate` serves them through
+the sequential engine. Greedy decoding is token-for-token identical to
+the sequential engine per request (MoE capacity aside: under capacity
+pressure co-resident requests can interact, as in the reference). Caches are written in place (the reference's are immutable); the
 freeze above and the zeroing at admission keep its semantics.
 """
 from __future__ import annotations
@@ -80,16 +87,28 @@ class _Admission:
     done_tokens: int = 0
 
 
+def continuous_refusal(model: Model) -> Optional[str]:
+    """The reference's ValueError message for what continuous batching does
+    not serve (families without chunked prefill, ring KV caches), or None
+    where it serves the model. Every engine choice reads this one rule."""
+    if model.tower_extend is None or model.server_extend is None:
+        return (f"family {model.cfg.family!r} does not support chunked prefill"
+                " (no tower_extend); use the sequential engine")
+    if model.cfg.decode_long_window:
+        return ("continuous batching does not support ring KV caches"
+                " (decode_long_window); use the sequential engine")
+    return None
+
+
 class ContinuousEngine:
     """Slot-based continuous batching over a split (tower/server) model."""
 
     def __init__(self, model: Model, params, num_clients: int, max_len: int,
                  *, slots: int = 8, chunk: int = 8, seed: int = 0,
                  device="cuda"):
-        if model.cfg.decode_long_window:
-            raise ValueError(
-                "continuous batching does not support ring KV caches"
-                " (decode_long_window); use the sequential engine")
+        why = continuous_refusal(model)
+        if why:
+            raise ValueError(why)
         self.device = dev = check_params_device(params, device)
         self.model = model
         self.params = params
@@ -146,11 +165,11 @@ class ContinuousEngine:
         h = None
         for m in range(self.M):
             mine = st["client"] == m
-            h_m = model.tower_decode(client_view(towers, m), tokens,
+            h_m = model.tower_decode(client_view(towers, m), {"tokens": tokens},
                                      self._tcache, st["pos"],
-                                     write=active & mine)
+                                     write=active & mine, rows_alone=True)["h"]
             h = h_m if h is None else torch.where(mine[:, None, None], h_m, h)
-        logits = model.server_decode(server, h, self._scache, st["pos"],
+        logits = model.server_decode(server, {"h": h}, self._scache, st["pos"],
                                      write=active)
         lg = logits[:, -1, :]
         self._finite &= torch.isfinite(lg).all()
@@ -186,9 +205,9 @@ class ContinuousEngine:
         tokens = torch.as_tensor(chunk_tokens, dtype=torch.int64)[None, :]
         if self.device.type == "cuda":  # pinned: the copy does not stall the host
             tokens = tokens.pin_memory().to(self.device, non_blocking=True)
-        h = model.tower_extend(client_view(self.params["towers"], req.client),
-                               tokens, tc, start, n_valid)
-        logits = model.server_extend(self.params["server"], h, sc, start,
+        smashed = model.tower_extend(client_view(self.params["towers"], req.client),
+                                     {"tokens": tokens}, tc, start, n_valid)
+        logits = model.server_extend(self.params["server"], smashed, sc, start,
                                      n_valid)
 
         st["pos"][slot] = start + n_valid
@@ -313,9 +332,10 @@ class ContinuousEngine:
             n += 1
         return n
 
-    def decode_all(self) -> int:
-        """Decode until no slot is active. Returns slot-tokens emitted."""
-        t0 = self.stats["decode_slot_tokens"]
-        while self._decode_once():
-            pass
+    def decode_all(self, max_steps: Optional[int] = None) -> int:
+        """Decode until no slot is active, or for at most max_steps steps.
+        Returns slot-tokens emitted."""
+        t0, steps = self.stats["decode_slot_tokens"], 0
+        while (max_steps is None or steps < max_steps) and self._decode_once():
+            steps += 1
         return self.stats["decode_slot_tokens"] - t0

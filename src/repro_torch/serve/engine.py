@@ -4,15 +4,19 @@ carries a client id and is served by that client's private tower and the
 shared server stack. Requests are grouped by client: batch layout
 [M, b, ...] like training.
 
-    prefill_step(params, tokens [M,b,S]) -> (logits [M*b,1,V], caches)
+    prefill_step(params, inputs) -> (logits [M*b,1,V], caches)
     decode_step(params, caches, tokens [M,b,1], pos) -> logits [M*b,1,V]
 
-Caches are updated in place by decode_step. Each client's rows run through
-the view of that client's tower (`core.split.client_view`), never a copy.
+`inputs` is {"tokens": [M,b,S]} plus the VLM's "vis" or the
+encoder-decoder's "frames" ([M,b,...]). The caches hold, beside the
+tower and server caches, the `extras` that decode reads again (the VLM's
+projected vision features). Caches are updated in place by decode_step.
+Each client's rows run through the view of that client's tower
+(`core.split.client_view`), never a copy.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,20 +33,29 @@ PyTree = Any
 class ServeCaches(NamedTuple):
     tower: List[PyTree]  # one tower cache per client, batch b
     server: PyTree  # batch M*b
+    extras: Dict[str, torch.Tensor]  # uploads decode reads again (vis_proj)
+
+
+def _cat(parts: List[dict]) -> dict:
+    """Per-client smashed dicts -> one dict over the M*b rows."""
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def build_prefill_step(model: Model, num_clients: int, max_len: int) -> Callable:
-    def prefill_step(params, tokens):
-        """tokens: [M,b,S] -> (last-token logits [M*b,1,V], caches)."""
-        hs, tcaches = [], []
+    def prefill_step(params, inputs):
+        """inputs: {tokens: [M,b,S], vis / frames: [M,b,...]} on the
+        engine's device -> (last-token logits [M*b,1,V], caches)."""
+        smashed, tcaches = [], []
         for m in range(num_clients):
-            h, tc = model.tower_prefill(client_view(params["towers"], m),
-                                        tokens[m], max_len)
-            hs.append(h)
+            sm, tc = model.tower_prefill(client_view(params["towers"], m),
+                                         {k: v[m] for k, v in inputs.items()},
+                                         max_len)
+            smashed.append(sm)
             tcaches.append(tc)
-        logits, scache = model.server_prefill(params["server"], torch.cat(hs),
-                                              max_len)
-        return logits, ServeCaches(tower=tcaches, server=scache)
+        flat = _cat(smashed)
+        logits, scache = model.server_prefill(params["server"], flat, max_len)
+        extras = {k: v for k, v in flat.items() if k not in ("h", "tokens")}
+        return logits, ServeCaches(tower=tcaches, server=scache, extras=extras)
 
     return prefill_step
 
@@ -50,13 +63,25 @@ def build_prefill_step(model: Model, num_clients: int, max_len: int) -> Callable
 def build_decode_step(model: Model, num_clients: int) -> Callable:
     def decode_step(params, caches: ServeCaches, tokens, pos):
         """tokens: [M,b,1] next input token; pos: int. -> logits."""
-        hs = [model.tower_decode(client_view(params["towers"], m), tokens[m],
-                                 caches.tower[m], pos)
-              for m in range(num_clients)]
-        return model.server_decode(params["server"], torch.cat(hs),
+        b = tokens.shape[1]
+        smashed = []
+        for m in range(num_clients):
+            inputs_t = {"tokens": tokens[m],
+                        **{k: v[m * b:(m + 1) * b] for k, v in caches.extras.items()}}
+            smashed.append(model.tower_decode(client_view(params["towers"], m),
+                                              inputs_t, caches.tower[m], pos))
+        return model.server_decode(params["server"], _cat(smashed),
                                    caches.server, pos)
 
     return decode_step
+
+
+def stage_inputs(inputs, device) -> Dict[str, torch.Tensor]:
+    """A request batch {tokens [M,b,S], vis / frames [M,b,...]} (numpy
+    arrays or tensors) as tensors on `device`: tokens int64, the rest as
+    given."""
+    return {k: torch.as_tensor(v, device=device).long() if k == "tokens"
+            else torch.as_tensor(v, device=device) for k, v in inputs.items()}
 
 
 def check_params_device(params, device) -> torch.device:
@@ -96,12 +121,15 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, inputs, new_tokens: int, temperature: float = 0.0,
                  rng: Optional[int] = None) -> torch.Tensor:
-        """inputs: {tokens: [M,b,S]}; returns int32 [M, b, new_tokens].
-        Families without chunked prefill (no tower_extend) and ring KV
-        caches go through generate_sequential, as in the reference."""
-        if self.model.tower_extend is None or self.model.cfg.decode_long_window:
+        """inputs: {tokens: [M,b,S], ...}; returns int32 [M, b, new_tokens].
+        Families without chunked prefill (no tower_extend: vlm, encdec)
+        and ring KV caches go through generate_sequential, as in the
+        reference."""
+        from repro_torch.serve.continuous import (ContinuousEngine, Request,
+                                                  continuous_refusal)
+
+        if continuous_refusal(self.model):
             return self.generate_sequential(inputs, new_tokens, temperature, rng)
-        from repro_torch.serve.continuous import ContinuousEngine, Request
 
         M = self.M
         prompt = _host(inputs["tokens"])
@@ -131,12 +159,12 @@ class ServeEngine:
                             temperature: float = 0.0,
                             rng: Optional[int] = None) -> torch.Tensor:
         """Batched-prefill + lockstep-decode loop (all rows enter and leave
-        together). inputs: {tokens: [M,b,S]}; returns int32 [M, b, new]."""
+        together). inputs: {tokens: [M,b,S], vis / frames: [M,b,...]};
+        returns int32 [M, b, new]."""
         M = self.M
-        tokens = torch.as_tensor(_host(inputs["tokens"]), dtype=torch.int64,
-                                 device=self.device)
-        b, S = tokens.shape[1], tokens.shape[2]
-        logits, caches = self._prefill(self.params, tokens)
+        inputs = stage_inputs(inputs, self.device)
+        b, S = inputs["tokens"].shape[1], inputs["tokens"].shape[2]
+        logits, caches = self._prefill(self.params, inputs)
         out = []
         tok = self._sample(logits, temperature, rng, 0).reshape(M, b, 1)
         for t in range(new_tokens):

@@ -11,7 +11,8 @@ the JAX reference, in f32 on the CPU.
     `attn_forward`, forward and gradients, and its refusal of
     attn_impl="chunked" (not ported);
   * the wrapper's refusal of a causal cross call;
-  * the `bidir` and `cross` blocks of the stacks.
+  * the `bidir` and `cross` blocks of the stacks (and which serving
+    functions each has).
 
 Tolerances: 2e-5 on outputs (tests/test_kernels.py's f32 limit), 1e-4 on
 gradients of max(1, |g|) scale.
@@ -161,4 +162,7 @@ def test_bidir_and_cross_blocks_match_jax(kind):
         return y
 
     _check(jax.jit(fn_j), pj, fn_t, pt, [x, enc] if kind == "cross" else [x], g)
-    assert bt.prefill is None  # serving of these kinds is not ported
+    # serving: an encoder block runs its forward, a cross block has
+    # prefill and decode (tests/test_torch_cross_serving.py); neither
+    # extends, as in the reference
+    assert (bt.prefill is None) == (kind == "bidir") and bt.extend is None

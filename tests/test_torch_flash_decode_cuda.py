@@ -7,7 +7,15 @@ a machine that has only PyTorch:
 
 Cases: the reference's DECODE_CASES shapes (tests/test_kernels.py), a
 windowed case with every row's window past the first KV tile, and the
-gemma3-12b shapes and zamba2-7b's (D = 112). Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
+gemma3-12b shapes, zamba2-7b's (D = 112) and the self-attention decodes
+of deepseek-moe-16b, llama-3.2-vision-11b and whisper-tiny as they are
+served. Tolerance 2e-5 in f32 (reduction order), 2e-2 in bf16.
+Then the serving modes of the rest of the zoo, in bf16 and f32: ring
+decode (kv_valid = min(pos + 1, cap), no q_offset, no window) at
+mistral-nemo-12b-swa's cap 4096 (Hq 32, Hkv 8, D 128), and cross decode
+over every key of a source at llama-3.2-vision's 1601 patches (G 4, D 128)
+and whisper-tiny's 1500 frames (G 1, D 64), caps that are not multiples
+of the 64-row split, counted under their mode.
 
 The bf16 kernel (split-KV over fixed runs of 64 cache rows, merged in the
 same launch) is also held at every G, at caps that are not multiples of 64,
@@ -44,6 +52,14 @@ CASES = [
     # D = 112) and the same in f32
     (4, 320, 32, 32, 112, 0, "bfloat16", False),
     (4, 320, 32, 32, 112, 0, "float32", False),
+    # the self-attention decodes of the rest of the zoo as served:
+    # deepseek-moe-16b (MHA, D = 128; 4 slots, and M b = 8 server rows in
+    # the sequential engine), llama-3.2-vision-11b (GQA 4, M b = 4 rows),
+    # whisper-tiny's decoder (MHA, D = 64, M b = 8 rows, cap 96)
+    (4, 288, 16, 16, 128, 0, "bfloat16", False),
+    (8, 288, 16, 16, 128, 0, "bfloat16", False),
+    (4, 288, 32, 8, 128, 0, "bfloat16", False),
+    (8, 96, 6, 6, 64, 0, "bfloat16", False),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -75,6 +91,37 @@ def test_cuda_kernel_matches_plain(case):
     assert flash_decode.launches == n + 1
     assert decode_reference.cuda_calls == plain
     torch.testing.assert_close(out.float(), decode_reference(q, k, v, **kw).float(),
+                               rtol=0, atol=TOL[dtype])
+
+
+MODE_CASES = [  # (mode, B, cap, Hq, Hkv, D)
+    ("ring", 2, 4096, 32, 8, 128),
+    ("cross", 4, 1601, 32, 8, 128),
+    ("cross", 8, 1500, 6, 6, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", MODE_CASES)
+def test_cuda_ring_and_cross_modes_match_plain(case, dtype):
+    _skip_without_card()
+    mode, B, cap, Hq, Hkv, D = case
+    q, k, v, _ = _inputs((B, cap, Hq, Hkv, D, 0, dtype, False), seed=15)
+    if mode == "ring":  # rows before, at and past the wrap: min(pos + 1, cap)
+        pos = torch.tensor([100, 9000][:B], dtype=torch.int32, device="cuda")
+        kv_valid = torch.clamp(pos + 1, max=cap)
+    else:  # every key of the source
+        kv_valid = torch.full((B,), cap, dtype=torch.int32, device="cuda")
+    counts = (flash_decode.launches, flash_decode.launches_ring,
+              flash_decode.launches_cross)
+    out = flash_decode(q, k, v, kv_valid=kv_valid, mode=mode)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == counts[0] + 1
+    assert flash_decode.launches_ring == counts[1] + (mode == "ring")
+    assert flash_decode.launches_cross == counts[2] + (mode == "cross")
+    torch.testing.assert_close(out.float(),
+                               decode_reference(q, k, v, kv_valid=kv_valid).float(),
                                rtol=0, atol=TOL[dtype])
 
 

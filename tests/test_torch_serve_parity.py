@@ -150,7 +150,7 @@ def test_prefill_logits_match_reference(variant):
                                                {"tokens": jnp.asarray(toks)})
     with torch.no_grad():
         got, _ = ServeEngine(model, params, cfg.num_clients, MAX_LEN,
-                             device="cpu")._prefill(params, torch.tensor(toks))
+                             device="cpu")._prefill(params, {"tokens": torch.tensor(toks)})
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 

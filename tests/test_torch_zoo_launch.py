@@ -6,8 +6,10 @@ draws its own byte-identical batches, and the histories must agree entry
 for entry (step, round and participants exactly, the loss within 1e-5).
 The VLM and encoder-decoder archs are refused: their batches carry vision
 features or audio frames that the LM source does not draw, as in the
-reference launcher. The serving launcher refuses the moe, vlm and encdec
-families, whose serving is not ported.
+reference launcher. The serving launcher, which once refused the moe, vlm
+and encdec families, serves them; it refuses `--engine continuous` for
+the vlm and encdec families (no chunked prefill) with the reference's
+message.
 """
 import dataclasses
 
@@ -85,5 +87,10 @@ def test_launcher_refuses_archs_whose_batches_the_source_cannot_draw(arch):
 def test_serving_launcher_refuses_the_unported_families(arch):
     from repro_torch.launch.serve import main as serve_main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        serve_main(["--arch", arch, "--device", "cpu", "--smoke"])
+    argv = ["--arch", arch, "--device", "cpu", "--smoke", "--prompt-len", "4",
+            "--new-tokens", "2"]
+    cfg = get_config(arch, smoke=True)
+    assert serve_main(argv).shape == (cfg.num_clients, 2, 2)
+    if cfg.family in ("vlm", "encdec"):
+        with pytest.raises(SystemExit, match="does not support chunked prefill"):
+            serve_main(argv + ["--engine", "continuous"])

@@ -183,12 +183,12 @@ def check_prefill_decode_matches_forward(arch):
         0, cfg.vocab_size, size=(B, S + T)))
     with torch.no_grad():
         full, _ = model.server_forward(sp, model.tower_forward(tp, {"tokens": toks}))
-        h, tcache = model.tower_prefill(tp, toks[:, :S], S + T)
+        h, tcache = model.tower_prefill(tp, {"tokens": toks[:, :S]}, S + T)
         logits, scache = model.server_prefill(sp, h, S + T)
         _close(logits[:, 0], full[:, S - 1].numpy(), tol=3e-5)
         for t in range(T):
             pos = S + t
-            h = model.tower_decode(tp, toks[:, pos:pos + 1], tcache, pos)
+            h = model.tower_decode(tp, {"tokens": toks[:, pos:pos + 1]}, tcache, pos)
             logits = model.server_decode(sp, h, scache, pos)
             _close(logits[:, 0], full[:, pos].numpy(), tol=3e-5)
 
@@ -238,7 +238,7 @@ def check_greedy_parity(arch):
         out = seq.generate_sequential({"tokens": toks}, n)
         np.testing.assert_array_equal(out[i % cfg.num_clients, 0].numpy(), refs[i])
         with torch.no_grad():
-            lg, _ = seq._prefill(params, torch.as_tensor(toks, dtype=torch.int64))
+            lg, _ = seq._prefill(params, {"tokens": torch.as_tensor(toks, dtype=torch.int64)})
         _close(lg, ref_logits[i], tol=1e-4)
 
 
@@ -261,7 +261,7 @@ def check_decode_freezes_other_rows(arch):
         m = i % M
         toks = torch.as_tensor(_one_row(cfg, i, p), dtype=torch.int64)
         with torch.no_grad():
-            _, caches = seq._prefill(params, toks)
+            _, caches = seq._prefill(params, {"tokens": toks})
             for t in range(n - 1):
                 tok = torch.zeros((M, 1, 1), dtype=torch.int64)
                 tok[m, 0, 0] = int(res[i][t])
