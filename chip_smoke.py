@@ -44,9 +44,12 @@ Phases, each of which must pass (any failure exits non-zero):
           clients, random weights from a seed, served through
           `repro_torch.launch.serve` (continuous engine, --bench): 8
           requests alternating clients, prompts of 64..256 tokens, 32 new
-          tokens each, 4 slots, chunk 64. Checks every request's tokens,
-          finite logits, and that every decode attention launched K4:
-          launches == attn_decode calls == (6 M + 42) per decode step, and
+          tokens each, 4 slots, chunk 64. Every decode step and every
+          extend chunk is a replay of the engine's CUDA graphs (M + 1 = 3
+          captured at construction, `serve/graphs.py`). Checks every
+          request's tokens, finite logits, the captures, and that every
+          decode attention launched K4: K4's launches as counted on the
+          card == attn_decode calls == (6 M + 42) per decode step, and
           the plain decode ran 0 times on the card.
   parity  full width, one 6-layer pattern unit in the tower and one in the
           server, f32 with TF32 off: greedy output of the continuous
@@ -299,6 +302,33 @@ Phases, each of which must pass (any failure exits non-zero):
           equal card vs CPU, K4 (ring, cross) and K2 (cross) on the card as
           the config asks; the MoE's continuous engine equals its
           sequential one token for token.
+  graphs  the engines' compiled steps (CUDA graphs) against the same steps
+          run eagerly (`graphs=False`), on the card. In f32 (TF32 off) at
+          parity's, sparity's and xparity's cut depths (gemma3-12b 12
+          layers, mamba2-130m 6, zamba2-7b 12, deepseek-moe-16b 4,
+          llama-3.2-vision-11b 5, whisper-tiny whole, mistral-nemo-12b-swa
+          4 with a window of 64), M = 2: the continuous engine on 4
+          requests of 5..130 tokens over 2 slots at chunk 64, the
+          sequential engine on 2 rows a client of 130 tokens, 8 new: the
+          eager steps run under torch.cuda.set_sync_debug_mode("error"),
+          greedy tokens equal, every decode step's logits within 1e-6 of
+          their scale, the counters equal, captures M + 1 (continuous) or 1
+          (sequential). Then in bf16 at full width with each serving
+          phase's configuration and traffic (slice, ssm-serve,
+          hybrid-serve, moe-serve, vlm-serve, encdec-serve, swa-serve),
+          through `launch.serve.run_bench` replayed (the phase's own run)
+          and eager (graphs=False; the same harness and warm-up), with
+          every eager decode attention on K4 and every scan on K3's
+          tensor-core path: prefill ms,
+          ms a decode step, tok/s, captures, capture ms, the graph pool's
+          GiB, the leading tokens the two share (bf16: reported), and a
+          torch.profiler window of replayed steps (the first wave's extend
+          chunks where they run K3; 8 decode steps: busy share), where the
+          K4 and K3 launches the profiler sees inside the replays must
+          equal the launches counted on the card (a window the profiler
+          lost a record of is measured again, up to three times, and the
+          last may lack one record of each, reported; more seen than
+          counted fails).
   ckpt    the LM example's --full config (mamba2-130m, M = 4, f32 masters,
           scan_layers, no remat) trained through train/loop.py with AdamW
           lr 3e-3, b 4, S 256 on a 4096-token MultiTaskLMSource (the
@@ -316,6 +346,12 @@ behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
 queue the call before the start event runs, so the host's wrapper time is
 not counted; K1's tree call_ms leaves the spin out to count it.
 
+K4 and K3 count their launches themselves on the card (one thread of a
+launch's first block adds one to an int64 table, `kernels/counts.py`), so
+the launches a phase reads are launches that ran, graph replays
+included; the other counters are Python ones, which each graph replay
+adds as its capture recorded them.
+
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line (K2's, K3's and K4's entries also carry `serve_launches`, their
 launches in the serving phases: K4's ring and cross decodes and K2's
@@ -325,8 +361,9 @@ cross and non-causal prefill attention apart), and as its last line
 phases alone and prints no result line (`--only
 ssm-serve,hybrid-serve,sparity,ckpt`: the serving and checkpoint phases,
 about 2.5 minutes; `--only moe-serve,vlm-serve,encdec-serve,swa-serve,
-xparity`: the rest of the zoo's serving). Each run prints its total time, and the four serving
-and checkpoint phases each print their seconds. Without CUDA,
+xparity`: the rest of the zoo's serving; `--only graphs`: the compiled
+steps against eager ones). Each run prints its total time, and the
+serving, graphs and checkpoint phases each print their seconds. Without CUDA,
 or without the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -535,6 +572,30 @@ XPARITY_ARCHS = {
                              "sliding_window": 64, "decode_long_window": 64},
 }
 XPARITY_LOGITS_TOL = 1e-4  # card vs CPU logits, of max(1, max |logit|) per row
+# graphs: replayed steps against eager ones. f32 at parity's, sparity's and
+# xparity's cut depths, M = 2, 4 requests over 2 slots at chunk 64 (the
+# sequential engine: one batch of 2 rows a client at the longest prompt)
+GRAPH_F32_ARCHS = {"gemma3-12b": {"num_layers": 12}, **SPARITY_ARCHS,
+                   **XPARITY_ARCHS}
+GRAPH_REQUESTS = ([5, 70, 130, 17], [8, 6, 8, 7])  # prompt lengths, new tokens
+GRAPH_MAX_LEN = 160
+GRAPH_LOGITS_TOL = 1e-6  # replayed vs eager logits, of max(1, max |logit|) per row
+PROFILE_MARGIN_S = 0.05  # host time between a profiled window and the trace's ends
+PROFILER_LOST_MAX = 1  # kernel records of K4, and of K3, a profiled window may lack
+# bf16 at full width with each serving phase's configuration and traffic:
+# phase -> (arch, M, b, prompt_len, min_prompt_len, new_tokens, engine)
+GRAPH_BF16 = {
+    "slice": ("gemma3-12b", 2, 4, 256, 64, 32, "continuous"),
+    **{key: (c["arch"], c["M"], SERVE_TRAFFIC["requests"] // c["M"],
+             SERVE_TRAFFIC["prompt_len"], SERVE_TRAFFIC["min_prompt_len"],
+             SERVE_TRAFFIC["new_tokens"], "continuous")
+       for key, c in SERVE_RUNS.items()},
+    **{key: (c["arch"], c["M"], c["b"], c["prompt_len"], None, c["new_tokens"],
+             "sequential") for key, c in SEQ_SERVE_RUNS.items()},
+    "swa-serve": (SWA_SERVE["arch"], SWA_SERVE["M"], SWA_SERVE["b"],
+                  SWA_SERVE["prompt_lens"][0], None, SWA_SERVE["new_tokens"],
+                  "sequential"),
+}
 # ckpt: the LM example's --full config, trained as lm-learn trains it
 CKPT = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
         "data_vocab": 4096, "rounds": 20, "resume_at": 10}
@@ -706,11 +767,26 @@ def _k4_cap_case(torch, dev, gen):
     return res
 
 
+# each serving phase's launcher metrics (its replayed run), which the
+# graphs phase sets beside an eager run of the same configuration
+_REPLAYED = {}
+
+
+def _check_captures(m: dict, want: int, what: str):
+    """The launcher's engine captured `want` graphs (its steps), whatever
+    the number of requests it served."""
+    if not (m["graphs"] and m["captures"] == want and m["graph_pool_bytes"]):
+        raise AssertionError(f"{what}: {m['captures']} graphs captured "
+                             f"(graphs {m['graphs']}), want {want}")
+
+
+def _graph_stats(m: dict) -> dict:
+    return {"captures": m["captures"], "capture_ms": m["capture_ms"],
+            "graph_pool_gib": m["graph_pool_bytes"] / 2**30}
+
+
 def slice_phase(torch):
-    from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.flash_decode.ref import decode_reference
     from repro_torch.launch import serve
-    from repro_torch.models import layers
 
     M, new_tokens, vocab = 2, 32, 262_144
     argv = ["--arch", "gemma3-12b", "--no-smoke", "--device", "cuda",
@@ -719,15 +795,14 @@ def slice_phase(torch):
             "--min-prompt-len", "64", "--new-tokens", str(new_tokens),
             "--engine", "continuous", "--bench", "--profile", "--seed", "0"]
     torch.cuda.reset_peak_memory_stats()
-    flash_decode.launches = 0
-    layers.attn_decode.calls = 0
-    decode_reference.cuda_calls = 0
+    _reset_counts(torch)
     t0 = time.perf_counter()
     m = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, calls = flash_decode.launches, layers.attn_decode.calls
-    plain = decode_reference.cuda_calls
+    _REPLAYED["slice"] = m
+    got = _read_counts(torch)
+    launches, calls, plain = got["k4"], got["attn_decode"], got["k4_plain"]
 
     outs = m["outputs"]
     if len(outs) != 2 * 4:
@@ -744,7 +819,9 @@ def slice_phase(torch):
             f"{m['decode_steps']} x {per_step}")
     if plain != 0:
         raise AssertionError(f"plain decode ran {plain} times on the card")
+    _check_captures(m, M + 1, "slice")
     return {"prefill_ms": m["prefill_ms"], "decode_tok_s": m["decode_tok_s"],
+            **_graph_stats(m),
             "tok_s_per_slot": m["tok_s_per_slot"], "slots": m["slots"],
             "decode_steps": m["decode_steps"], "extend_chunks": m["extend_chunks"],
             "k4_launches": launches, "attn_decode_calls": calls,
@@ -772,7 +849,7 @@ def parity_phase(torch):
     rng = np.random.default_rng(1)
     lens, new = [5, 23, 40, 17], [8, 6, 8, 7]
     prompts = [rng.integers(0, cfg.vocab_size, size=L) for L in lens]
-    n0, c0 = flash_decode.launches, layers.attn_decode.calls
+    n0, c0 = flash_decode.counts.total(), layers.attn_decode.calls
 
     eng = ContinuousEngine(model, params, M, max_len, slots=2, chunk=16,
                            device="cuda")
@@ -787,10 +864,11 @@ def parity_phase(torch):
         if not (res[i] == ref).all():
             raise AssertionError(f"request {i}: continuous {res[i]} != "
                                  f"sequential {ref}")
-    if flash_decode.launches - n0 != layers.attn_decode.calls - c0:
+    launches = flash_decode.counts.total() - n0
+    if launches != layers.attn_decode.calls - c0:
         raise AssertionError("a decode attention bypassed K4 in the parity phase")
     return {"requests": len(prompts), "tokens": int(sum(new)),
-            "k4_launches": flash_decode.launches - n0}
+            "k4_launches": launches}
 
 
 def build_phase() -> dict:
@@ -1513,17 +1591,16 @@ def k3_phase(torch, dev):
 
 
 def _lm_counts(torch):
-    """The LM paths' counters, by name: (object, attribute). K2's and K3's
-    launches (K3's tensor-core ones apart) and plain forwards on CUDA
-    tensors; K1's multi-tensor launches, the leaves they updated, its
-    per-leaf launches and its plain update on CUDA tensors; serving's K4
-    launches, decode attentions and plain decodes on CUDA tensors."""
+    """The paths' Python counters, by name: (object, attribute). K2's
+    launches and plain forwards on CUDA tensors; K3's plain forwards on
+    CUDA tensors; K1's multi-tensor launches, the leaves they updated, its
+    per-leaf launches and its plain update on CUDA tensors; serving's
+    decode attentions and plain decodes on CUDA tensors. K3's and K4's
+    launches are counted on the card (`_read_counts`)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import mha_reference
-    from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.flash_decode.ref import decode_reference
     from repro_torch.kernels.mtsl_update.ops import mtsl_update_, mtsl_update_multi_
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
     from repro_torch.models import layers
 
@@ -1532,27 +1609,38 @@ def _lm_counts(torch):
     return {"k2": (flash_attention, "launches"),
             "k2_bidir": (flash_attention, "launches_bidir"),
             "k2_cross": (flash_attention, "launches_cross"),
-            "k3": (ssd_scan, "launches"),
-            "k3_tc": (ssd_scan, "launches_tc"), "k1": (mtsl_update_multi_, "launches"),
+            "k1": (mtsl_update_multi_, "launches"),
             "k1_leaves": (mtsl_update_multi_, "leaves"),
             "k1_single": (mtsl_update_, "launches"),
             "k2_plain": (mha_reference, "cuda_calls"),
             "k3_plain": (ssd_reference, "cuda_calls"),
             "k1_plain": (mtsl_update_reference, "cuda_calls"),
-            "k4": (flash_decode, "launches"),
-            "k4_ring": (flash_decode, "launches_ring"),
-            "k4_cross": (flash_decode, "launches_cross"),
             "attn_decode": (layers.attn_decode, "calls"),
             "k4_plain": (decode_reference, "cuda_calls")}
 
 
 def _reset_counts(torch):
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
     for obj, attr in _lm_counts(torch).values():
         setattr(obj, attr, 0)
+    flash_decode.counts.reset()
+    ssd_scan.counts.reset()
 
 
 def _read_counts(torch):
-    return {name: getattr(obj, attr) for name, (obj, attr) in _lm_counts(torch).items()}
+    """_lm_counts' counters, and K4's and K3's launches as the launches
+    counted themselves on the card (graph replays included; waits for the
+    card): k4 (every mode), k4_ring, k4_cross, k3 (both paths), k3_tc."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    got = {name: getattr(obj, attr) for name, (obj, attr) in _lm_counts(torch).items()}
+    k4, k3 = flash_decode.counts.read(), ssd_scan.counts.read()
+    got.update(k4=sum(k4.values()), k4_ring=k4["ring"], k4_cross=k4["cross"],
+               k3=sum(k3.values()), k3_tc=k3["tc"])
+    return got
 
 
 # (K2 causal, K2 non-causal self, K2 cross, K3) launches of one block's
@@ -1944,7 +2032,8 @@ def zoo_phase(torch, dev, key: str):
     tcfg = TrainConfig(steps=rounds, lr=c["lr"], log_every=1, seed=0, device=dev.type)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(torch)
-    moe_forward.tally = [] if cfg.family == "moe" else None
+    moe_forward.tally = (torch.zeros(2, dtype=torch.int64, device=dev)
+                         if cfg.family == "moe" else None)
     try:
         t0 = time.perf_counter()
         state, hist = train(model, sgd(c["lr"]), iter(batches[:rounds]), tcfg, M,
@@ -1976,8 +2065,8 @@ def zoo_phase(torch, dev, key: str):
            "s_per_round": [times[0]] + [b - a for a, b in zip(times, times[1:])],
            "peak_mem_gib": peak, "phase_s": wall, "counts": counts,
            "launches_per_round": want, "k1_leaves": leaves}
-    if tally:
-        kept, routed = torch.stack(tally).sum(0).tolist()
+    if tally is not None:
+        kept, routed = tally.tolist()
         res["moe_rows_kept"], res["moe_rows_routed"] = kept, routed
         res["dropped_share"] = 1.0 - kept / routed
     rf = get_algorithm("mtsl").round_fn(model, M, HParams(
@@ -2613,12 +2702,15 @@ def serve_phase(torch, key):
             "--bench", "--seed", "0"] + (["--profile"] if c["profile"] else [])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(torch)
-    moe_forward.tally = [] if cfg.family == "moe" else None
+    # set before the engine captures its steps: the graphs add to it
+    moe_forward.tally = (torch.zeros(2, dtype=torch.int64, device="cuda")
+                         if cfg.family == "moe" else None)
     try:
         t0 = time.perf_counter()
         m = serve.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        _REPLAYED[key] = m
         tally = moe_forward.tally
     finally:
         moe_forward.tally = None
@@ -2639,15 +2731,17 @@ def serve_phase(torch, key):
             and got["k4_plain"] == 0 and got["k4_ring"] == got["k4_cross"] == 0):
         raise AssertionError(f"{key}: counts {got}, want {k4_per_step} K4 launches "
                              f"per decode step x {steps}")
+    _check_captures(m, M + 1, key)
     res = {"arch": c["arch"], "M": M, "prefill_ms": m["prefill_ms"],
            "decode_tok_s": m["decode_tok_s"], "tok_s_per_slot": m["tok_s_per_slot"],
+           **_graph_stats(m),
            "slots": m["slots"], "extend_steps": extends, "decode_steps": steps,
            "counts": got, "k3_launches_per_extend_chunk": k3_per_chunk,
            "k4_launches_per_decode_step": k4_per_step, "profile": m.get("profile"),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "continuous_s": wall}
-    if tally:
-        kept, routed = torch.stack(tally).sum(0).tolist()
+    if tally is not None:
+        kept, routed = tally.tolist()
         res.update(moe_rows_kept=kept, moe_rows_routed=routed,
                    dropped_share=1.0 - kept / routed)
     if c["sequential"]:
@@ -2805,6 +2899,7 @@ def seq_serve_phase(torch, key):
     m = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _REPLAYED[key] = m
     got = _read_counts(torch)
     _check_tokens(m["outputs"], M * b, n, cfg.vocab_size, key)
     # the bench's warm-up generation and its timed pass: two prefills and
@@ -2821,8 +2916,9 @@ def seq_serve_phase(torch, key):
             and got["k4_ring"] == 0):
         raise AssertionError(f"{key}: counts {got}, want {want} (two prefills, "
                              f"{steps} decode steps)")
+    _check_captures(m, 1, key)  # one batch shape: the two passes share a graph
     return {"arch": c["arch"], "M": M, "b": b, "prompt_len": c["prompt_len"],
-            "new_tokens": n, "prefill_ms": m["prefill_ms"],
+            "new_tokens": n, "prefill_ms": m["prefill_ms"], **_graph_stats(m),
             "decode_tok_s": m["decode_tok_s"], "tok_s_per_slot": m["tok_s_per_slot"],
             "ms_per_decode_step": M * b / m["decode_tok_s"] * 1e3,
             "counts": got, "want": want,
@@ -2867,6 +2963,7 @@ def swa_serve_phase(torch):
                     "--engine", "sequential", "--bench", "--seed", "0"])
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
+    _REPLAYED["swa-serve"] = m
     got = _read_counts(torch)
     _check_tokens(m["outputs"], M * b, n, cfg.vocab_size, "swa-serve")
     steps = 2 * (n - 1)
@@ -2874,8 +2971,9 @@ def swa_serve_phase(torch):
             and got["k4_plain"] == 0):
         raise AssertionError(f"swa-serve: counts {got}, want {per_step} ring "
                              f"launches per decode step x {steps}")
+    _check_captures(m, 1, "swa-serve")
     res = {"arch": c["arch"], "M": M, "b": b, "window": window,
-           "bench": {"prompt_len": L0, "new_tokens": n,
+           "bench": {"prompt_len": L0, "new_tokens": n, **_graph_stats(m),
                      "prefill_ms": m["prefill_ms"], "decode_tok_s": m["decode_tok_s"],
                      "ms_per_decode_step": M * b / m["decode_tok_s"] * 1e3,
                      "counts": got, "s": bench_s},
@@ -2979,7 +3077,7 @@ def xparity_phase(torch):
         cpu = ServeEngine(model, cpu_params, M, max_len, device="cpu")
         rng = np.random.default_rng(1)
         worst, tokens = 0.0, []
-        got = dict.fromkeys(_lm_counts(torch), 0)  # the card's runs only
+        got = dict.fromkeys(_read_counts(torch), 0)  # the card's runs only
         for i, (L, nt) in enumerate(zip(lens, new)):
             inputs = {"tokens": np.zeros((M, 1, L), np.int64)}
             inputs["tokens"][i % M, 0] = rng.integers(0, cfg.vocab_size, size=L)
@@ -3029,6 +3127,314 @@ def xparity_phase(torch):
         out[arch] = res
         del params, cpu_params, card, cpu
         torch.cuda.empty_cache()
+    return out
+
+
+def _profile_window(torch, fn, margin_s: float = PROFILE_MARGIN_S) -> dict:
+    """torch.profiler over fn() (synced): wall and device ms, busy share,
+    and the K4 and K3 launches the profiler sees (kernels named
+    flash_decode* / ssd_scan*, inside graph replays too) beside the
+    launches counted on the card over the same window (read outside the
+    trace: the trace holds fn's work alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = _read_counts(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the window opens well after the trace does (an H100 run with no
+        # margin lost the first 19 K4 launches of its first window)
+        time.sleep(margin_s)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin_s)
+    got = _read_counts(torch)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def seen(tag):
+        return sum(e.count for e in kernels if tag in e.key)
+
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "k4_kernels": {e.key[:60]: e.count for e in kernels
+                           if "flash_decode" in e.key},
+            "device_busy_share": device_ms / wall_ms,
+            "k4_seen": seen("flash_decode"), "k4_counted": got["k4"] - before["k4"],
+            "k3_seen": seen("ssd_scan"), "k3_counted": got["k3"] - before["k3"]}
+
+
+def _check_seen(prof: dict, what: str):
+    for k in ("k4", "k3"):
+        if prof[f"{k}_seen"] != prof[f"{k}_counted"]:
+            raise AssertionError(f"graphs {what}: the profiler saw {prof[f'{k}_seen']} "
+                                 f"{k.upper()} launches, the counters say "
+                                 f"{prof[f'{k}_counted']}")
+
+
+def _synced_off(torch, sync_check: bool):
+    """set_sync_debug_mode("error") inside the block when sync_check."""
+    @contextlib.contextmanager
+    def block():
+        torch.cuda.set_sync_debug_mode("error" if sync_check else "default")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return block()
+
+
+def _continuous_steps(torch, model, params, cfg, M, use_graphs: bool):
+    """GRAPH_REQUESTS through a continuous engine step by step (eager steps
+    under sync debug mode "error"): (tokens by request, each decode step's
+    logits on the host, captures)."""
+    import numpy as np
+
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+
+    lens, new = GRAPH_REQUESTS
+    eng = ContinuousEngine(model, params, M, GRAPH_MAX_LEN, slots=2,
+                           chunk=SERVE_TRAFFIC["chunk"], device="cuda",
+                           graphs=use_graphs)
+    rng = np.random.default_rng(1)
+    for i, (L, n) in enumerate(zip(lens, new)):
+        eng.submit(Request(id=i, client=i % M, new_tokens=n,
+                           tokens=rng.integers(0, cfg.vocab_size, size=L)))
+    logits = []
+    while True:
+        with _synced_off(torch, not use_graphs):
+            issued = eng._issue_chunk()
+            decoded = eng._decode_once()
+        if decoded is not None:
+            logits.append(decoded.float().cpu())
+        if not issued and decoded is None:
+            break
+    res = eng.run()
+    return [res[i] for i in range(len(lens))], logits, eng.stats["captures"]
+
+
+def _sequential_steps(torch, model, params, cfg, M, use_graphs: bool):
+    """One seeded batch (M x 2 rows of GRAPH_REQUESTS' longest prompt)
+    through the sequential engine's decode step, greedy (the eager step
+    under sync debug mode "error"): (tokens [steps, rows], logits by step,
+    captures)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServeEngine, stage_inputs
+
+    L, n = max(GRAPH_REQUESTS[0]), max(GRAPH_REQUESTS[1])
+    eng = ServeEngine(model, params, M, GRAPH_MAX_LEN, device="cuda",
+                      graphs=use_graphs)
+    inputs = stage_inputs(serve.seeded_inputs(cfg, M, 2, L, 1), "cuda")
+    with torch.no_grad():
+        logits, caches = eng._prefill(params, inputs)
+        tok = torch.argmax(logits[:, -1], dim=-1).reshape(M, 2, 1)
+        buf = eng.load_caches(caches, 2, L)
+        del caches
+        toks, lgs = [tok.flatten().cpu()], []
+        for _ in range(n - 1):
+            with _synced_off(torch, not use_graphs):
+                buf.tok.copy_(tok)
+                lg = buf.step.run()[:, -1]
+                tok = torch.argmax(lg, dim=-1).reshape(M, 2, 1)
+            lgs.append(lg.float().cpu())
+            toks.append(tok.flatten().cpu())
+    return torch.stack(toks), lgs, eng.graphs.captures
+
+
+def _graphs_f32(torch) -> dict:
+    """Replay against eager in f32 at cut depth, per family."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, cut in GRAPH_F32_ARCHS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).with_updates(dtype="float32", **cut)
+        model = build_model(cfg)
+        M = 2
+        params = init_params(model, M, 1, "cuda")
+        run = (_continuous_steps if model.tower_extend is not None
+               and not cfg.decode_long_window else _sequential_steps)
+        _reset_counts(torch)
+        eager = run(torch, model, params, cfg, M, False)
+        counts_eager = _read_counts(torch)
+        _reset_counts(torch)
+        replay = run(torch, model, params, cfg, M, True)
+        counts_replay = _read_counts(torch)
+        for i, (a, b) in enumerate(zip(replay[0], eager[0])):
+            if not (torch.as_tensor(a) == torch.as_tensor(b)).all():
+                raise AssertionError(f"graphs {arch}: replayed tokens {a} != eager {b} "
+                                     f"(request or step {i})")
+        if len(replay[1]) != len(eager[1]) or not eager[1]:
+            raise AssertionError(f"graphs {arch}: {len(replay[1])} replayed decode "
+                                 f"steps, {len(eager[1])} eager")
+        worst = max(((a - b).abs().amax(-1) / torch.clamp(b.abs().amax(-1), min=1.0)
+                     ).max().item() for a, b in zip(replay[1], eager[1]))
+        if not worst <= GRAPH_LOGITS_TOL:
+            raise AssertionError(f"graphs {arch}: replayed vs eager logits {worst} > "
+                                 f"{GRAPH_LOGITS_TOL} of their scale")
+        want = M + 1 if run is _continuous_steps else 1
+        if not (replay[2] == want and eager[2] == 0 and counts_replay == counts_eager
+                and counts_replay["k4_plain"] == 0):
+            raise AssertionError(f"graphs {arch}: captures {replay[2]} (want {want}), "
+                                 f"counts replayed {counts_replay}, eager {counts_eager}")
+        out[arch] = {"layers": cfg.num_layers, "engine": run.__name__[1:].split("_")[0],
+                     "captures": replay[2], "decode_steps": len(replay[1]),
+                     "logits_rel_err": worst, "counts": counts_replay,
+                     "s": time.perf_counter() - t0}
+        print(f"  graphs f32 {arch}: {out[arch]['engine']}, {replay[2]} captures, "
+              f"{len(replay[1])} decode steps, logits {worst:.2e} of scale "
+              f"({out[arch]['s']:.1f} s)", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _profile_seen(torch, fn, what: str, again=None, tries: int = 3) -> dict:
+    """_profile_window over fn until the profiler sees every K4 and K3
+    launch counted on the card, in at most `tries` windows (`again`
+    readies the next one; margins 1x, 4x and 16x PROFILE_MARGIN_S around
+    it). The counted launches are the kernels' own (each launch adds one
+    on the card), so a window where the profiler sees fewer lost kernel
+    records: in whole runs on an H100 it lost one K4 record of 432 or 240
+    now and then, and one of moe-serve's 240 in every window of two whole
+    runs, whatever the margin and wherever the counts were read. So the
+    last window may lack up to PROFILER_LOST_MAX records of each kernel
+    (reported as `profiler_lost`); more lost, or more seen than counted,
+    fails. Returns that window, with the short ones as `misses`."""
+    misses = []
+    for i in range(tries):
+        if i and again is not None:
+            again()
+        prof = _profile_window(torch, fn, PROFILE_MARGIN_S * 4 ** i)
+        pairs = [(prof[f"{k}_seen"], prof[f"{k}_counted"]) for k in ("k4", "k3")]
+        if any(s > c for s, c in pairs):
+            _check_seen(prof, what)
+        if all(s == c for s, c in pairs):
+            return dict(prof, misses=misses, profiler_lost=0)
+        misses.append(pairs)
+    lost = [c - s for s, c in pairs]
+    if max(lost) > PROFILER_LOST_MAX:
+        raise AssertionError(f"graphs {what}: in {tries} windows the profiler saw fewer "
+                             f"launches than the card counted: (seen, counted) of K4 "
+                             f"and K3 {misses}")
+    print(f"  graphs {what}: the profiler lost {lost} (K4, K3) kernel records of "
+          f"{[c for _, c in pairs]} counted on the card, in each of {tries} windows",
+          flush=True)
+    return dict(prof, misses=misses, profiler_lost=sum(lost))
+
+
+def _graphs_bf16(torch, key) -> dict:
+    """One serving phase's configuration at full width in bf16, timed by
+    launch.serve.run_bench twice on the same weights, with the same
+    warm-up: the phase's own replayed run (run here where the phase did
+    not run) and one with the steps run eagerly (graphs=False); then
+    profiled windows of the replayed steps. The eager run's launches are
+    checked as the f32 part cannot: every decode attention on K4, every
+    scan on K3's tensor-core path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serve.continuous import ContinuousEngine, Request
+    from repro_torch.serve.engine import ServeEngine, stage_inputs
+
+    arch, M, b, L, lo, n, kind = GRAPH_BF16[key]
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = serve.init_params(model, M, 0, "cuda")  # the launcher's seed
+    t = SERVE_TRAFFIC
+
+    def bench(use_graphs: bool) -> dict:
+        return serve.run_bench(
+            model, params, cfg, M, b, L, n, kind, t["chunk"], device="cuda", seed=0,
+            min_prompt_len=lo, slots=t["slots"] if kind == "continuous" else None,
+            graphs=use_graphs)
+
+    def timings(r: dict) -> dict:
+        return {"prefill_ms": r["prefill_ms"], "decode_tok_s": r["decode_tok_s"],
+                "ms_per_decode_step": r["slots"] / r["decode_tok_s"] * 1e3,
+                "captures": r["captures"], "capture_ms": r["capture_ms"]}
+
+    m = _REPLAYED.get(key) or bench(True)
+    replayed = dict(timings(m), graph_pool_gib=m["graph_pool_bytes"] / 2**30)
+    _reset_counts(torch)
+    e = bench(False)
+    counts = _read_counts(torch)
+    if not (counts["k4"] == counts["attn_decode"] and counts["k4_plain"] == 0
+            and counts["k3"] == counts["k3_tc"] and counts["k3_plain"] == 0):
+        raise AssertionError(f"graphs {key}: eager counts {counts}")
+    eager = dict(timings(e), counts=counts)
+    lead = [_lead(a, x) for a, x in zip(m["outputs"], e["outputs"])]
+    want = M + 1 if kind == "continuous" else 1
+    if not (m["graphs"] and m["captures"] == want and not e["graphs"]
+            and e["captures"] == 0 and len(lead) == len(m["outputs"])):
+        raise AssertionError(f"graphs {key}: captures {m['captures']} (want {want}), "
+                             f"eager {e['captures']}, {len(lead)} requests compared")
+    # the replayed steps under the profiler: the first wave's extend chunks
+    # where they run K3, and PROFILE_STEPS decode steps (K4, busy share)
+    steps = serve.PROFILE_STEPS
+    extend = None
+    if kind == "continuous":
+        eng = ContinuousEngine(model, params, M, L + n, slots=t["slots"],
+                               chunk=t["chunk"], seed=0, device="cuda")
+        prompts = serve._prompts(cfg, t["slots"], L, lo, 0)
+
+        def wave():
+            eng.run()
+            for i, p in enumerate(prompts):
+                eng.submit(Request(id=i, client=i % M, tokens=p, new_tokens=n))
+
+        wave()
+        if cfg.family in ("ssm", "hybrid"):
+            extend = _profile_seen(torch, eng.prefill_all, f"{key} extend", wave)
+        else:
+            eng.prefill_all()
+        decode = _profile_seen(torch, lambda: eng.decode_all(max_steps=steps),
+                               f"{key} decode")
+        eng.run()
+    else:
+        eng = ServeEngine(model, params, M, L + n, device="cuda")
+        inputs = stage_inputs(serve.seeded_inputs(cfg, M, b, L, 0), "cuda")
+        eng.generate_sequential(inputs, 2)  # captures the decode step
+        with torch.no_grad():
+            logits, caches = eng._prefill(params, inputs)
+            tok = eng._sample(logits, 0.0, None, 0).reshape(M, b, 1)
+            buf = eng.load_caches(caches, b, L)
+            decode = _profile_seen(
+                torch, lambda: eng.decode(buf, tok, steps + 1), f"{key} decode",
+                lambda: eng.load_caches(caches, b, L))
+            del caches, buf
+    res = {"arch": arch, "engine": kind, "M": M, "eager": eager,
+           "replayed": replayed, "leading_tokens_equal": lead,
+           "requests_equal": int(sum(x == n for x in lead)),
+           "profile_decode": dict(decode, ms_per_step=decode["wall_ms"] / steps,
+                                  device_ms_per_step=decode["device_ms"] / steps),
+           "profile_extend": extend}
+    del params, eng
+    torch.cuda.empty_cache()
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def graphs_phase(torch) -> dict:
+    """graphs (see the module docstring): replay against eager, in f32 at
+    cut depth and in bf16 at full width."""
+    out = {"f32": _graphs_f32(torch)}
+    for key in GRAPH_BF16:
+        out[key] = _graphs_bf16(torch, key)
+        r = out[key]
+        print(f"  graphs {key}: {r['eager']['ms_per_decode_step']:.1f} -> "
+              f"{r['replayed']['ms_per_decode_step']:.1f} ms a step, busy "
+              f"{r['profile_decode']['device_busy_share']:.3f}, "
+              f"{r['replayed']['captures']} captures in "
+              f"{r['replayed']['capture_ms']:.0f} ms, leading tokens "
+              f"{r['leading_tokens_equal']} ({r['s']:.1f} s)", flush=True)
     return out
 
 
@@ -3129,7 +3535,7 @@ PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
           "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
-          "swa-serve", "xparity", "ckpt")
+          "swa-serve", "xparity", "graphs", "ckpt")
 
 
 def _phases_wanted(argv):
@@ -3349,6 +3755,15 @@ def main() -> int:
             report["xparity"] = xparity_phase(torch)
             print("XPARITY " + json.dumps(report["xparity"]), flush=True)
             print(f"[xparity] {time.perf_counter() - t1:.1f} s", flush=True)
+
+        if want("graphs"):
+            print("[graphs] replayed steps vs eager: f32 at cut depth, bf16 at full "
+                  "width", flush=True)
+            t1 = time.perf_counter()
+            report["graphs"] = graphs_phase(torch)
+            print("GRAPHS " + json.dumps(report["graphs"]), flush=True)
+            print(f"[graphs] {time.perf_counter() - t1:.1f} s", flush=True)
+            torch.cuda.empty_cache()
 
         if want("ckpt"):
             print(f"[ckpt] {CKPT['arch']} full config, adamw, {CKPT['resume_at']} "

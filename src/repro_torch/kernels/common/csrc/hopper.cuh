@@ -2,8 +2,9 @@
 // kernels: mbarriers, TMA tensor loads and bulk copies into shared memory,
 // wgmma shared-memory descriptors and the bf16 warpgroup products
 // (m64n64k16 and m64n128k16), transposed ldmatrix, named barriers,
-// register hand-over, and the host's encoding of tensor maps.
-// Written in inline PTX; nothing here allocates or launches.
+// register hand-over, the host's encoding of tensor maps, and a launch
+// counting itself. Written in inline PTX; nothing here allocates or
+// launches.
 //
 // Conventions: shared-memory addresses are 32-bit (`smem_u32`); a tile
 // that a wgmma reads with the 128-byte swizzle starts on a 1024-byte
@@ -20,6 +21,15 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the launch counts itself: thread 0 of the grid's first block adds one to
+// *launched (null: not counted), so a launch that a CUDA graph replays is
+// counted as one issued from the host is (kernels/counts.py)
+__device__ __forceinline__ void count_launch(unsigned long long* launched) {
+  if (launched != nullptr && threadIdx.x == 0 && blockIdx.x == 0 &&
+      blockIdx.y == 0 && blockIdx.z == 0)
+    atomicAdd(launched, 1ull);
 }
 
 // ---------------------------------------------------------------------------

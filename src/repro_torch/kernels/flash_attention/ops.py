@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.counts import register
 from repro_torch.kernels.flash_attention.ref import mha_grouped, mha_reference
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -163,6 +164,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # kernel launches (the plain CPU path is not counted): a run reads them to
 # show that its attention went through the kernel, and in which mode
-flash_attention.launches = 0
-flash_attention.launches_bidir = 0
-flash_attention.launches_cross = 0
+register(flash_attention, "launches", "launches_bidir", "launches_cross")

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.counts import register
+
 NEG_INF = -1e30
 
 
@@ -100,4 +102,4 @@ def mha_grouped(
 
 # calls on CUDA tensors (serving prefill and extend make them; the training
 # forward on the card goes through K2 and must make none)
-mha_reference.cuda_calls = 0
+register(mha_reference, "cuda_calls")

@@ -101,7 +101,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ kv_valid,
                     const int* __restrict__ q_offset, int Hq, int D, int cap,
                     int window, float scale, long long s_b, long long s_r,
-                    long long s_h) {
+                    long long s_h, unsigned long long* launched) {
+  hopper::count_launch(launched);
   constexpr int R = G >= 8 ? 2 : 4;  // cache rows in flight per warp step
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
@@ -255,7 +256,8 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           float* __restrict__ part, int* __restrict__ counter,
                           int Hq, int Hkv, int D, int cap, int window,
                           int splits, float scale, long long s_b, long long s_r,
-                          long long s_h) {
+                          long long s_h, unsigned long long* launched) {
+  hopper::count_launch(launched);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kSplit][D]
   __nv_bfloat16* sV = sK + kSplit * D;                             // [kSplit][D]
@@ -491,7 +493,7 @@ cudaError_t launch_f32(int G, const void* q, const void* k, const void* v,
                        void* out, const int* kv_valid, const int* q_offset,
                        int B, int Hq, int Hkv, int D, int cap, int window,
                        long long s_b, long long s_r, long long s_h,
-                       cudaStream_t st) {
+                       unsigned long long* launched, cudaStream_t st) {
   const dim3 grid(Hkv, B);
   const float scale = (float)(1.0 / sqrt((double)D));
   const float* qt = (const float*)q;
@@ -501,7 +503,7 @@ cudaError_t launch_f32(int G, const void* q, const void* k, const void* v,
 #define REPRO_FD_LAUNCH(GG)                                                  \
   flash_decode_kernel<float, GG><<<grid, kThreads, 0, st>>>(                 \
       qt, kt, vt, ot, kv_valid, q_offset, Hq, D, cap, window, scale, s_b,    \
-      s_r, s_h)
+      s_r, s_h, launched)
   switch (G) {
     case 1: REPRO_FD_LAUNCH(1); break;
     case 2: REPRO_FD_LAUNCH(2); break;
@@ -518,7 +520,8 @@ cudaError_t launch_split_g(const void* q, const void* k, const void* v,
                            void* out, const int* kv_valid, const int* q_offset,
                            float* part, int* counter, int B, int Hq, int Hkv,
                            int D, int cap, int window, int splits, long long s_b,
-                           long long s_r, long long s_h, cudaStream_t st) {
+                           long long s_r, long long s_h,
+                           unsigned long long* launched, cudaStream_t st) {
   const int smem = 2 * kSplit * D * 2;  // K and V rows of one split
   const cudaError_t e = cudaFuncSetAttribute(
       flash_decode_split_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -529,7 +532,7 @@ cudaError_t launch_split_g(const void* q, const void* k, const void* v,
   flash_decode_split_kernel<G><<<grid, kSplitThreads, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, kv_valid, q_offset, part, counter, Hq, Hkv, D, cap,
-      window, splits, scale, s_b, s_r, s_h);
+      window, splits, scale, s_b, s_r, s_h, launched);
   return cudaGetLastError();
 }
 
@@ -537,13 +540,15 @@ cudaError_t launch_bf16(int G, const void* q, const void* k, const void* v,
                         void* out, const int* kv_valid, const int* q_offset,
                         float* part, int* counter, int B, int Hq, int Hkv, int D,
                         int cap, int window, int splits, long long s_b,
-                        long long s_r, long long s_h, cudaStream_t st) {
+                        long long s_r, long long s_h,
+                        unsigned long long* launched, cudaStream_t st) {
   if (part == nullptr || counter == nullptr || splits <= 0 ||
       (long long)splits * kSplit < cap)
     return cudaErrorInvalidValue;
 #define REPRO_FD_SPLIT(GG)                                                    \
   return launch_split_g<GG>(q, k, v, out, kv_valid, q_offset, part, counter, \
-                            B, Hq, Hkv, D, cap, window, splits, s_b, s_r, s_h, st)
+                            B, Hq, Hkv, D, cap, window, splits, s_b, s_r, s_h, \
+                            launched, st)
   switch (G) {
     case 1: REPRO_FD_SPLIT(1);
     case 2: REPRO_FD_SPLIT(2);
@@ -559,7 +564,8 @@ cudaError_t launch_bf16(int G, const void* q, const void* k, const void* v,
 // Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // bf16 only: part is the f32 scratch of the splits' partials, [B, Hkv,
 // splits, G, D + 2]; counter the int32 [B * Hkv] counters, zero on entry and
-// left at zero; splits = ceil(cap / 64) (ops.py::split_plan). The caller
+// left at zero; splits = ceil(cap / 64) (ops.py::split_plan). launched: the
+// uint64 that the launch adds one to on the card (may be null). The caller
 // validates shapes and alignment; returns cudaGetLastError() after the
 // launch.
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
@@ -568,7 +574,7 @@ extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
                                   void* part, void* counter, int splits,
                                   int B, int Hq, int Hkv, int D, int cap,
                                   int window, long long s_b, long long s_r,
-                                  long long s_h, void* stream) {
+                                  long long s_h, void* launched, void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > kMaxD ||
       D % kVec != 0 || cap <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -576,13 +582,14 @@ extern "C" int repro_flash_decode(int dtype, const void* q, const void* k,
   const int* kvv = (const int*)kv_valid;
   const int* qo = (const int*)q_offset;
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* n = (unsigned long long*)launched;
   if (dtype == 0)
     return (int)launch_f32(G, q, k, v, out, kvv, qo, B, Hq, Hkv, D, cap, window,
-                           s_b, s_r, s_h, st);
+                           s_b, s_r, s_h, n, st);
   if (dtype == 1)
     return (int)launch_bf16(G, q, k, v, out, kvv, qo, (float*)part,
                             (int*)counter, B, Hq, Hkv, D, cap, window, splits,
-                            s_b, s_r, s_h, st);
+                            s_b, s_r, s_h, n, st);
   return (int)cudaErrorInvalidValue;
 }
 

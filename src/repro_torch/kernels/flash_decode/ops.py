@@ -11,6 +11,14 @@ The bf16 kernel splits the cache into fixed runs of SPLIT_ROWS rows and
 merges the splits in the same launch: the wrapper sizes its scratch from
 the buffer's capacity (`split_plan`), never from kv_valid, so it never
 waits on the card.
+
+The wrapper can be captured in a CUDA graph (the serving engines' steps,
+`serve/graphs.py`): it reads no device value on the host, its scratch
+comes from `torch.empty` (the graph's private pool under capture, at an
+address every replay reuses), and its counter table exists before the
+capture (`_counters`). Every launch counts itself on the card, by mode, in
+`flash_decode.counts` (`kernels/counts.py`): a launch replayed from a
+graph is counted as an eager one is.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.counts import DeviceCounts
 from repro_torch.kernels.flash_decode.ref import decode_reference, per_row
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -34,6 +43,9 @@ MODES = ("self", "ring", "cross")  # the callers' uses, counted apart
 # per (device, stream): the bf16 kernel's int32 counters, one per (row, kv
 # head); zeroed once, and every launch leaves them at zero
 _COUNTERS = {}
+# tables that a larger one replaced: a CUDA graph captured on that stream
+# may still launch the kernel on them, so they are never freed
+_RETIRED = []
 
 
 def split_plan(B: int, Hkv: int, cap: int, G: int, D: int) -> dict:
@@ -47,9 +59,21 @@ def split_plan(B: int, Hkv: int, cap: int, G: int, D: int) -> dict:
 
 
 def _counters(device, stream, n: int) -> torch.Tensor:
+    """The stream's counter table of at least n entries. A CUDA graph bakes
+    the table's address into its launches, so a table is made outside any
+    capture (the step's warm-up on the capture stream makes it,
+    `serve/graphs.py`), and one that a larger table replaces is kept
+    alive. Every launch leaves its entries at zero, so a replayed launch
+    finds them as the captured one did."""
     key = (device, stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "flash_decode: no counter table of this size for the capturing "
+                "stream; run the step once on that stream before capture")
+        if c is not None:
+            _RETIRED.append(c)
         c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return c
 
@@ -59,7 +83,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_cuda_library("flash_decode", SOURCES, HEADERS)
     fn = lib.repro_flash_decode
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, P]
+    fn.argtypes = [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, LL, LL, LL, P, P]
     fn.restype = I
     lib.repro_cuda_error_string.argtypes = [I]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -160,21 +184,15 @@ def flash_decode(
         None if part is None else part.data_ptr(),
         None if counter is None else counter.data_ptr(), splits,
         B, Hq, Hkv, D, cap, window,
-        k.stride(0), k.stride(1), k.stride(2), stream)
+        k.stride(0), k.stride(1), k.stride(2),
+        flash_decode.counts.entry(q.device, mode), stream)
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_decode kernel launch failed: {msg} ({rc})")
-    flash_decode.launches += 1
-    if mode == "ring":
-        flash_decode.launches_ring += 1
-    elif mode == "cross":
-        flash_decode.launches_cross += 1
     return out
 
 
-# kernel launches (the plain CPU path is not counted): a run reads them to
-# show that its decode attention went through the kernel, and in which
-# mode (the self-attention launches are the rest)
-flash_decode.launches = 0
-flash_decode.launches_ring = 0
-flash_decode.launches_cross = 0
+# kernel launches by mode, counted on the card by each launch (the plain CPU
+# path is not counted): a run reads them to show that its decode attention
+# went through the kernel, and in which mode
+flash_decode.counts = DeviceCounts("flash_decode", MODES)

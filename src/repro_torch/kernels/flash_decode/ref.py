@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.counts import register
+
 NEG_INF = -1e30
 
 
@@ -65,4 +67,4 @@ def decode_reference(
 # calls made on CUDA tensors: the serving path must leave this at 0 (the
 # wrapper sends CUDA tensors to the kernel); only kernel-vs-plain checks
 # call the plain version on the card
-decode_reference.cuda_calls = 0
+register(decode_reference, "cuda_calls")

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.counts import register
 from repro_torch.kernels.mtsl_update.ref import eta_rows, mtsl_update_reference
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mtsl_update.cu",)
@@ -151,9 +152,8 @@ def mtsl_update_(p: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor:
 
 
 # single-leaf kernel launches (the plain CPU path is not counted)
-mtsl_update_.launches = 0
+register(mtsl_update_, "launches")
 # multi-tensor launches, and the nonempty leaves they updated (the plain CPU
 # path is not counted): a run reads both to show that every leaf of every
 # round went through K1, one launch a round
-mtsl_update_multi_.launches = 0
-mtsl_update_multi_.leaves = 0
+register(mtsl_update_multi_, "launches", "leaves")

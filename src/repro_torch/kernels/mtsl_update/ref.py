@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.counts import register
+
 
 def eta_rows(eta, device) -> torch.Tensor:
     """A step size as an f32 [R] tensor on `device` (a float is filled on
@@ -40,4 +42,4 @@ def mtsl_update_reference(p: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor
 # calls made on CUDA tensors: the training path must leave this at 0 (the
 # wrapper sends CUDA tensors to the kernel); only kernel-vs-plain checks
 # call the plain version on the card
-mtsl_update_reference.cuda_calls = 0
+register(mtsl_update_reference, "cuda_calls")

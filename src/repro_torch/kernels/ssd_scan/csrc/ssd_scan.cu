@@ -127,7 +127,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ h0,
                 T* __restrict__ y, float* __restrict__ state, int L, int H,
-                int P, int N) {
+                int P, int N, unsigned long long* launched) {
+  hopper::count_launch(launched);
   extern __shared__ float smem[];
   const int PN = N + 1, PP = P + 1, PT = kT + 1;
   float* sB = smem;             // [kT][N + 1]
@@ -279,7 +280,7 @@ template <typename T, int JP, int JN>
 cudaError_t launch_tiles(const void* x, const float* dt, const float* A,
                          const void* Bm, const void* Cm, const float* h0,
                          void* y, float* state, int B, int L, int H, int P,
-                         int N, cudaStream_t st) {
+                         int N, unsigned long long* launched, cudaStream_t st) {
   const size_t bytes = smem_floats(P, N) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       ssd_scan_kernel<T, JP, JN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,7 +289,7 @@ cudaError_t launch_tiles(const void* x, const float* dt, const float* A,
   const dim3 grid(H, B);
   ssd_scan_kernel<T, JP, JN><<<grid, kThreads, bytes, st>>>(
       (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, (T*)y, state, L, H,
-      P, N);
+      P, N, launched);
   return cudaGetLastError();
 }
 
@@ -296,15 +297,19 @@ template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A,
                    const void* Bm, const void* Cm, const float* h0, void* y,
                    float* state, int B, int L, int H, int P, int N,
-                   cudaStream_t st) {
+                   unsigned long long* launched, cudaStream_t st) {
   const bool wide_p = P > 64, wide_n = N > 64;
   if (!wide_p && !wide_n)
-    return launch_tiles<T, 4, 4>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N, st);
+    return launch_tiles<T, 4, 4>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N,
+                                 launched, st);
   if (!wide_p)
-    return launch_tiles<T, 4, 8>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N, st);
+    return launch_tiles<T, 4, 8>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N,
+                                 launched, st);
   if (!wide_n)
-    return launch_tiles<T, 8, 4>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N, st);
-  return launch_tiles<T, 8, 8>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N, st);
+    return launch_tiles<T, 8, 4>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N,
+                                 launched, st);
+  return launch_tiles<T, 8, 8>(x, dt, A, Bm, Cm, h0, y, state, B, L, H, P, N,
+                                 launched, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -440,7 +445,8 @@ ssd_scan_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                    const float* __restrict__ h0, __nv_bfloat16* __restrict__ y,
                    float* __restrict__ state, float* __restrict__ ring,
                    int* __restrict__ counters, int L, int H, int P, int N,
-                   int nchunks, int ngroups) {
+                   int nchunks, int ngroups, unsigned long long* launched) {
+  hopper::count_launch(launched);
   using C = TcCfg<PP, NP, G>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -756,7 +762,8 @@ constexpr int kErrTensorMap = 100000;
 template <int PP, int NP, int G>
 int launch_tc_cfg(const void* x, const float* dt, const float* A, const void* Bm,
                   const void* Cm, const float* h0, void* y, float* state, float* ring,
-                  int* counters, int B, int L, int H, int P, int N, cudaStream_t st) {
+                  int* counters, int B, int L, int H, int P, int N,
+                  unsigned long long* launched, cudaStream_t st) {
   using C = TcCfg<PP, NP, G>;
   if (H % G != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap xm, bm, cm;
@@ -774,20 +781,21 @@ int launch_tc_cfg(const void* x, const float* dt, const float* A, const void* Bm
   const int nchunks = (L + kTc - 1) / kTc, ngroups = H / G;
   ssd_scan_tc_kernel<PP, NP, G><<<B * ngroups * nchunks, kTcThreads, C::kSmem, st>>>(
       xm, bm, cm, dt, A, h0, (__nv_bfloat16*)y, state, ring, counters, L, H, P, N,
-      nchunks, ngroups);
+      nchunks, ngroups, launched);
   return (int)cudaGetLastError();
 }
 
 int launch_tc(int G, const void* x, const float* dt, const float* A, const void* Bm,
               const void* Cm, const float* h0, void* y, float* state, float* ring,
-              int* counters, int B, int L, int H, int P, int N, cudaStream_t st) {
+              int* counters, int B, int L, int H, int P, int N,
+              unsigned long long* launched, cudaStream_t st) {
   if (P % 16 || N % 16 || ring == nullptr || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   const int pp = P > 64 ? 128 : 64, np = N > 64 ? 128 : 64;
 #define REPRO_SSD_CFG(PPV, NPV, GV)                                                  \
   if (pp == PPV && np == NPV && G == GV)                                             \
     return launch_tc_cfg<PPV, NPV, GV>(x, dt, A, Bm, Cm, h0, y, state, ring, counters, \
-                                       B, L, H, P, N, st);
+                                       B, L, H, P, N, launched, st);
   REPRO_SSD_CFG(64, 64, 1)
   REPRO_SSD_CFG(64, 64, 2)
   REPRO_SSD_CFG(64, 64, 4)
@@ -808,14 +816,15 @@ int launch_tc(int G, const void* x, const float* dt, const float* A, const void*
 // hand-off states (P and N padded to whole 64-column blocks, in fragment
 // order) and `counters` the int32 [2 B H / G] tickets and flags,
 // zero on entry and left at zero; 0 takes the FMA path (ring, counters
-// unused). h0 may be null (zero initial state). The caller validates
+// unused). h0 may be null (zero initial state). launched: the uint64 that
+// the launch adds one to on the card (may be null). The caller validates
 // shapes, contiguity and alignment; returns 0, cudaGetLastError() after
 // the launch, or an error of its own.
 extern "C" int repro_ssd_scan(int dtype, int tc, int G, const void* x, const void* dt,
                               const void* A, const void* Bm, const void* Cm,
                               const void* h0, void* y, void* state, void* ring,
                               void* counters, int B, int L, int H, int P, int N,
-                              void* stream) {
+                              void* launched, void* stream) {
   if (B <= 0 || L <= 0 || H <= 0 || P <= 0 || N <= 0 || P > kMaxPN ||
       N > kMaxPN)
     return (int)cudaErrorInvalidValue;
@@ -824,15 +833,16 @@ extern "C" int repro_ssd_scan(int dtype, int tc, int G, const void* x, const voi
   const float* Af = (const float*)A;
   const float* h0f = (const float*)h0;
   float* sf = (float*)state;
+  unsigned long long* n = (unsigned long long*)launched;
   if (tc)
     return dtype == 1 ? launch_tc(G, x, dtf, Af, Bm, Cm, h0f, y, sf, (float*)ring,
-                                  (int*)counters, B, L, H, P, N, st)
+                                  (int*)counters, B, L, H, P, N, n, st)
                       : (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float>(x, dtf, Af, Bm, Cm, h0f, y, sf, B, L, H, P, N, st);
+    return (int)launch<float>(x, dtf, Af, Bm, Cm, h0f, y, sf, B, L, H, P, N, n, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, h0f, y, sf, B, L, H,
-                                      P, N, st);
+                                      P, N, n, st);
   return (int)cudaErrorInvalidValue;
 }
 

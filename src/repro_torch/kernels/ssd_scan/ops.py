@@ -17,6 +17,13 @@ shapes and the dtype: bf16 with P and N multiples of 16 takes the
 chunk-parallel tensor-core path (every main path), everything else the
 FMA path (f32, which must stay exact to 2e-5, and bf16 with P or N such
 as 8).
+
+The forward can be captured in a CUDA graph (the continuous engine's
+extend step, `serve/graphs.py`), as flash_decode's wrapper can: no device
+value is read on the host, the outputs and the ring come from
+`torch.empty` (the graph's pool under capture), the ticket table exists
+before the capture, and every launch counts itself on the card, by path,
+in `ssd_scan.counts` (`kernels/counts.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
+from repro_torch.kernels.counts import DeviceCounts
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -42,6 +50,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # per (batch row, head group); zeroed once, and every launch leaves them at
 # zero
 _COUNTERS = {}
+# tables that a larger one replaced: a CUDA graph captured on that stream
+# may still launch the kernel on them, so they are never freed
+_RETIRED = []
 
 
 def scan_plan(B: int, L: int, H: int, P: int, N: int, dtype) -> dict:
@@ -81,9 +92,19 @@ def scan_plan(B: int, L: int, H: int, P: int, N: int, dtype) -> dict:
 
 
 def _counters(device, stream, n: int) -> torch.Tensor:
+    """The stream's ticket table of at least n entries, made outside any
+    CUDA graph capture and never freed once replaced, as in
+    `flash_decode.ops._counters` (a graph launches on the address it
+    captured; every launch leaves the table at zero)."""
     key = (device, stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "ssd_scan: no ticket table of this size for the capturing "
+                "stream; run the step once on that stream before capture")
+        if c is not None:
+            _RETIRED.append(c)
         c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return c
 
@@ -93,7 +114,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_cuda_library("ssd_scan", SOURCES, HEADERS)
     fn = lib.repro_ssd_scan
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    fn.argtypes = [I, I, I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     fn.restype = I
     lib.repro_ssd_scan_error_string.argtypes = [I]
     lib.repro_ssd_scan_error_string.restype = ctypes.c_char_p
@@ -148,12 +169,11 @@ def _launch(x, dt, A, Bm, Cm, h0):
         A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), state.data_ptr(),
         None if ring is None else ring.data_ptr(),
-        None if counters is None else counters.data_ptr(), B, L, H, P, N, stream)
+        None if counters is None else counters.data_ptr(), B, L, H, P, N,
+        ssd_scan.counts.entry(x.device, plan["path"]), stream)
     if rc != 0:
         msg = lib.repro_ssd_scan_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan kernel launch failed: {msg} ({rc})")
-    ssd_scan.launches += 1
-    ssd_scan.launches_tc += int(tc)
     return y, state
 
 
@@ -195,8 +215,8 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 128,
     return _SSDScan.apply(x, dt, A, Bm, Cm, int(chunk), initial_state)
 
 
-# kernel launches (the plain CPU path is not counted): a run reads it to
-# show that its Mamba2 layers went through the kernel; launches_tc counts
-# those of them that took the tensor-core path
-ssd_scan.launches = 0
-ssd_scan.launches_tc = 0
+# kernel launches by path ("fma", "tc"), counted on the card by each launch
+# (the plain CPU path is not counted): a run reads them to show that its
+# Mamba2 layers went through the kernel, and which of them took the
+# tensor-core path
+ssd_scan.counts = DeviceCounts("ssd_scan", ("fma", "tc"))

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.counts import register
+
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """S[..., i, j] = sum_{k=j+1..i} a[..., k] on and below the diagonal,
@@ -119,4 +121,4 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
 
 # calls on CUDA tensors: on the card the model path must reach the kernel,
 # never this plain version (its backward is counted separately)
-ssd_reference.cuda_calls = 0
+register(ssd_reference, "cuda_calls")

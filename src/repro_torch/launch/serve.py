@@ -36,6 +36,12 @@ Usage:
         --chunk 64 --prompt-len 256 --min-prompt-len 64 --new-tokens 32 \
         --bench
 
+Both engines run their decode steps (and the continuous engine its extend
+steps) as CUDA graphs on the card (`serve/graphs.py`): `--bench` reports
+the graphs captured, the milliseconds their warm-ups and captures took
+(set-up, outside the timed phases) and the bytes of the engine's graph
+pool.
+
 Unlike the reference's `--smoke` (store_true with default True), `--smoke`
 here can be turned off (`--no-smoke`), so the full config is reachable. A
 checkpoint holds the training tree (f32 masters in the reference's layout);
@@ -159,11 +165,15 @@ def _profile_decode(eng, submit_all) -> dict:
 def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
               new_tokens: int, engine_kind: str, chunk: int = 8, *,
               device="cuda", slots=None, min_prompt_len=None, seed=0,
-              profile: bool = False) -> dict:
-    """Timed serving smoke: a warm-up (continuous: one short request;
-    sequential: the whole batch), then a measured prefill phase and decode
-    phase over M*b requests (request i is client i % M).
-    Returns prefill_ms / decode_tok_s / tok_s_per_slot.
+              profile: bool = False, graphs: bool = True) -> dict:
+    """Timed serving smoke: a warm-up (continuous: the engine's
+    construction, which captures its steps, and one short request;
+    sequential: the whole batch, whose first decode step captures), then a
+    measured prefill phase and decode phase over M*b requests (request i
+    is client i % M). Returns prefill_ms / decode_tok_s / tok_s_per_slot,
+    and the engine's `captures`, `capture_ms` and `graph_pool_bytes`
+    (`graphs=False` runs the same steps eagerly: a yardstick for the
+    graphs, not a launcher option).
 
     continuous: `slots` (default M*b) cache slots; prompt lengths uniform
     in [min_prompt_len, prompt_len] (default: all prompt_len). The timed
@@ -173,7 +183,8 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
     with a window of their decode steps profiled (`_profile_decode`).
     sequential: M*b rows in lockstep, on the
     generate path's inputs (`seeded_inputs`: the VLM's vision features
-    and the encoder-decoder's frames too)."""
+    and the encoder-decoder's frames too); prefill_ms includes the copy
+    of the prefill's caches into the decode step's static buffers."""
     dev = resolve_device(device)
     n_req = M * b
     max_len = prompt_len + new_tokens
@@ -185,7 +196,8 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
         slots = slots or n_req
         chunk = min(chunk, prompt_len)
         eng = ContinuousEngine(model, params, M, max_len, slots=slots,
-                               chunk=chunk, seed=seed, device=dev)
+                               chunk=chunk, seed=seed, device=dev,
+                               graphs=graphs)
 
         def submit_all():
             for i in range(n_req):
@@ -211,6 +223,7 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
         decode_tokens = emitted
         n_slots = slots
         extra = {"profile": _profile_decode(eng, submit_all)} if profile else {}
+        sg = eng.graphs
         extra.update({"extend_chunks": n_chunks,
                  "decode_steps": eng.stats["decode_steps"],
                  "stats": dict(eng.stats),  # every pass, warm-up included
@@ -219,7 +232,8 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
     else:
         if min_prompt_len is not None:
             raise ValueError("the sequential engine takes one prompt length")
-        engine = ServeEngine(model, params, M, max_len, device=dev)
+        engine = ServeEngine(model, params, M, max_len, device=dev,
+                             graphs=graphs)
         inputs = stage_inputs(seeded_inputs(cfg, M, b, prompt_len, seed), dev)
         out = engine.generate_sequential(inputs, new_tokens)  # warm-up
         _sync(dev)
@@ -227,18 +241,18 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
             t0 = time.perf_counter()
             logits, caches = engine._prefill(engine.params, inputs)
             tok = engine._sample(logits, 0.0, None, 0).reshape(M, b, 1)
+            buf = engine.load_caches(caches, b, prompt_len)
+            del caches
             _sync(dev)
             t1 = time.perf_counter()
-            for t in range(new_tokens - 1):
-                logits = engine._decode(engine.params, caches, tok.long(),
-                                        prompt_len + t)
-                tok = engine._sample(logits, 0.0, None, t + 1).reshape(M, b, 1)
+            engine.decode(buf, tok, new_tokens)
             _sync(dev)
             t2 = time.perf_counter()
         prefill_s, decode_s = t1 - t0, t2 - t1
         decode_tokens = n_req * (new_tokens - 1)
         n_slots = n_req
         extra = {"outputs": list(out.reshape(n_req, new_tokens).numpy())}
+        sg = engine.graphs
 
     decode_tok_s = decode_tokens / max(decode_s, 1e-9)
     return {
@@ -249,6 +263,10 @@ def run_bench(model, params, cfg, M: int, b: int, prompt_len: int,
         "prefill_ms": prefill_s * 1e3,
         "decode_tok_s": decode_tok_s,
         "tok_s_per_slot": decode_tok_s / n_slots,
+        "graphs": sg.enabled,
+        "captures": sg.captures,
+        "capture_ms": sg.capture_ms,
+        "graph_pool_bytes": sg.pool_bytes(),
         **extra,
     }
 
@@ -327,7 +345,9 @@ def main(argv=None):
         print(f"[{metrics['engine']}] prefill {metrics['prefill_ms']:.1f} ms | "
               f"decode {metrics['decode_tok_s']:.1f} tok/s | "
               f"{metrics['tok_s_per_slot']:.1f} tok/s/slot "
-              f"({metrics['slots']} slots, {metrics['device']})")
+              f"({metrics['slots']} slots, {metrics['device']}) | "
+              f"{metrics['captures']} graphs captured in "
+              f"{metrics['capture_ms']:.0f} ms")
         return metrics
 
     max_len = args.prompt_len + args.new_tokens

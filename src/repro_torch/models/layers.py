@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.counts import register
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import mha_reference
 from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -83,10 +84,14 @@ def rmsnorm(p, x, eps=1e-6):
 @functools.lru_cache(maxsize=None)
 def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
     """[half] f32 frequencies, built on the CPU once per (theta, half,
-    device): a host->device copy per call would stall the host."""
+    device): a host->device copy per call would stall the host. The one
+    copy goes through pinned memory, so it does not wait on the card
+    either (a serving step's warm-up makes it before its capture)."""
     log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
     freqs = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32) / half)
-    return freqs.to(device)
+    if device.type != "cuda":
+        return freqs.to(device)
+    return freqs.pin_memory().to(device, non_blocking=True)
 
 
 def rope(x, positions, theta: float):
@@ -291,7 +296,7 @@ def attn_decode(p, x_t, cache, pos, cfg: ModelConfig, *, window: int = 0,
 
 # decode-attention calls, counted where the engines make them; on CUDA
 # every one must be a flash-decode kernel launch
-attn_decode.calls = 0
+register(attn_decode, "calls")
 
 
 def attn_extend(p, x_c, cache, start, cfg: ModelConfig, *, window: int = 0):

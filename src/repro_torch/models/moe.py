@@ -97,7 +97,7 @@ def _dispatch(p, ht, cfg: ModelConfig, C: int):
     keep = pos_in_e < C
     if moe_forward.tally is not None:
         kept = keep.sum()
-        moe_forward.tally.append(torch.stack([kept, kept.new_full((), G * T * k)]))
+        moe_forward.tally += torch.stack([kept, kept.new_full((), G * T * k)])
 
     # dispatch: slot (e, c) of a group holds its sorted row seg_start[e] +
     # c, or the zero pad row T*k when expert e has fewer than c + 1 rows
@@ -156,7 +156,9 @@ def moe_forward(p, x, cfg: ModelConfig, groups: Optional[int] = None):
     return y.reshape(orig_shape), aux
 
 
-# dispatch statistics: while a list, each call appends a [2] int64 tensor
-# (rows kept, rows routed, over its groups) on the input's device, without
-# a host sync; None (the default) records nothing
+# dispatch statistics: while an int64 [2] tensor on the input's device,
+# each call adds (rows kept, rows routed, over its groups) to it in place,
+# without a host sync (in place, so a CUDA graph that captured the call
+# adds on every replay: set it before an engine captures its steps, and
+# zero it rather than replace it); None (the default) records nothing
 moe_forward.tally = None

@@ -46,8 +46,9 @@ its server caches {"dec": the decoder's caches, "enc_out": the
 encoder's output}. `n_valid` counts the real tokens of the chunk: the
 Mamba blocks of the ssm and hybrid stacks neutralise the padded steps
 with it (an int, or a [B] tensor of one per row), and server_extend takes
-the logits at the last real token (an int: the continuous engine extends
-one request at a time). `write` ([B] bool) freezes the caches of the rows
+the logits at the last real token. `start` and `n_valid` may be device
+tensors (the continuous engine's captured extend step reads them from its
+static buffers), and then nothing on the path reads them on the host. `write` ([B] bool) freezes the caches of the rows
 where it is False. `rows_alone` dispatches each row's token through the
 tower's MoE layers as its own group (the reference's continuous engine
 vmaps the tower decode over slots). The reference returns new caches; the
@@ -66,6 +67,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_decode.ref import per_row
 from repro_torch.models import layers as L
 from repro_torch.models.stacks import make_stack
 from repro_torch.nn import param
@@ -191,7 +193,11 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         x = server_stack.extend(sp["blocks"], smashed_c["h"], scache,
                                 {"start": start, "n_valid": n_valid})
         # logits for each row's LAST REAL chunk token (padded tail is garbage)
-        x = x[:, max(int(n_valid) - 1, 0)][:, None]
+        if torch.is_tensor(n_valid):  # gathered on the device: no host read
+            last = per_row(n_valid, x.shape[0], x.device).long().clamp(min=1) - 1
+            x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+        else:
+            x = x[:, max(int(n_valid) - 1, 0)][:, None]
         return _head(sp, x)
 
     can_extend = (not is_vlm and tower_stack.extend is not None

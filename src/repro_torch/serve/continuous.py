@@ -14,6 +14,18 @@ chunks, decode, and leave.
     marking the slot free; the next occupant's first chunk zeroes the
     slot's caches.
 
+  * Compiled steps. As the reference's engine runs exactly two jitted
+    step functions whose shapes never change, this one runs its steps as
+    CUDA graphs (`serve/graphs.py`), captured once at construction while
+    every slot is free and replayed for every step after: one decode step
+    and one extend step per client (M + 1 graphs in one memory pool;
+    `stats["steps"]` built, `stats["captures"]` captured). Admission,
+    eviction and slot reuse never capture again. Every step reads and
+    writes static buffers only: the slot pool, the slot scalars and
+    `_facts`, the chunk's tokens and its facts, which one pinned
+    host->device copy a chunk writes. On the CPU (and with
+    `graphs=False`) the same steps run eagerly on the same buffers.
+
   * `_decode` — the hot path. For each client m the tower runs over ALL
     slots with the view of tower m (static shapes, rows independent) and
     only the rows whose client is m are kept; the reference instead
@@ -24,15 +36,21 @@ chunks, decode, and leave.
     never take an expert's capacity. One batched server decode over all
     slots follows (its MoE layers dispatch the slots together, as the
     reference's server decode does), then sampling on the device (no
-    device->host sync per token). Inactive slots ride along, but their
-    caches are frozen: decode writes K/V, conv tails and SSM states in
-    place only for active rows (for the tower, active rows of that client).
+    device->host sync per token): greedy and sampled tokens both, each
+    slot taking one by its temperature, as the reference does. Inactive
+    slots ride along, but their caches are frozen: decode writes K/V,
+    conv tails and SSM states in place only for active rows (for the
+    tower, active rows of that client).
 
-  * `_extend` — chunked prefill of ONE request into its slot, through
-    views of the slot's caches (every cache leaf is written with `copy_` or
-    an indexed store, so the pool itself changes) and of its client's
-    tower, with the chunk's real-token count n_valid. The final chunk
-    samples the request's first output token at its last prompt position.
+  * `_extend` — chunked prefill of ONE request into its slot through its
+    client's tower (a view, never a copy; one step per client). The
+    scheduling facts (slot, start, n_valid, is_last, temperature, key,
+    new_tokens) are device scalars, as the reference traces them: the
+    slot's caches are gathered into a staging copy (zeroed on the first
+    chunk, start == 0), extended in place, and scattered back, as the
+    reference's dynamic_slice / dynamic_update_slice do. The final chunk
+    samples the request's first output token at its last prompt position;
+    the slot scalars are written with `torch.where` on is_last.
 
   * Host scheduler. `submit()` queues requests; `run()` loops: admit at
     most one prefill chunk per iteration (chunked prefill interleaved with
@@ -50,6 +68,8 @@ freeze above and the zeroing at admission keep its semantics.
 """
 from __future__ import annotations
 
+import functools
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -59,10 +79,16 @@ import torch
 from repro_torch.core.split import client_view
 from repro_torch.models.registry import Model
 from repro_torch.serve.engine import check_params_device
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.sampling import fold_in, sample
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves
 
 PyTree = Any
+
+# the chunk's facts, after its `chunk` tokens in one int64 buffer; the
+# temperature as the bits of an f32
+_SLOT, _START, _NVALID, _LAST, _KEY, _NEW, _TEMP = range(7)
+N_FACTS = 7
 
 
 @dataclass
@@ -105,7 +131,7 @@ class ContinuousEngine:
 
     def __init__(self, model: Model, params, num_clients: int, max_len: int,
                  *, slots: int = 8, chunk: int = 8, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         why = continuous_refusal(model)
         if why:
             raise ValueError(why)
@@ -140,6 +166,20 @@ class ContinuousEngine:
         }
         # AND of isfinite over every logits row the engine has sampled from
         self._finite = torch.ones((), dtype=torch.bool, device=dev)
+        # the extend step's inputs: one slot's caches staged, and the chunk
+        self._tstage = model.init_tower_cache(1, cap, dev)
+        self._sstage = model.init_server_cache(1, cap, dev)
+        self._facts = torch.zeros((chunk + N_FACTS,), dtype=torch.int64,
+                                  device=dev)
+        # the compiled steps: captured now, while every slot is free, so the
+        # warm-ups write only caches and scalars that admission resets. They
+        # hold the engine weakly: an engine no caller holds is freed at once
+        # (caches, graphs), not at the next cyclic collection
+        self.graphs = StepGraphs(dev, graphs)
+        me, cls = weakref.proxy(self), type(self)
+        self._decode_step = self.graphs.step(functools.partial(cls._decode, me))
+        self._extend_steps = [self.graphs.step(functools.partial(cls._extend, me, m))
+                              for m in range(num_clients)]
 
         # host mirrors (never read back from the device for scheduling)
         self._free: List[int] = list(range(slots))
@@ -150,14 +190,16 @@ class ContinuousEngine:
         self._admitting: Optional[_Admission] = None
         self._results: Dict[int, torch.Tensor] = {}
         self.stats = {"extend_steps": 0, "decode_steps": 0, "admitted": 0,
-                      "decode_slot_tokens": 0}
+                      "decode_slot_tokens": 0, "steps": self.graphs.steps,
+                      "captures": self.graphs.captures}
 
     # ------------------------------------------------------------------
     # device steps
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def _decode(self, sampling: bool):
+    def _decode(self):
+        """One decode step over every slot; returns its logits [slots, V]."""
         model, st, cap = self.model, self._state, self.cap
         towers, server = self.params["towers"], self.params["server"]
         active = st["remaining"] > 0
@@ -174,61 +216,74 @@ class ContinuousEngine:
         lg = logits[:, -1, :]
         self._finite &= torch.isfinite(lg).all()
 
-        chosen = torch.argmax(lg, dim=-1).to(torch.int32)
-        if sampling:
-            # per-slot key folded with the slot's position
-            keys = fold_in(st["key"], st["pos"].long())
-            sampled = sample(lg, st["temp"], keys)
-            chosen = torch.where(st["temp"] > 0.0, sampled, chosen)
+        # per-slot key folded with the slot's position
+        sampled = sample(lg, st["temp"], fold_in(st["key"], st["pos"].long()))
+        greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+        chosen = torch.where(st["temp"] > 0.0, sampled, greedy)
         tok = torch.where(active, chosen, st["tok"])
 
         rows = torch.arange(self.slots, device=self.device)
         idx = st["n_out"].long().clamp(max=cap - 1)  # frozen rows may sit at cap
         st["out"][rows, idx] = torch.where(active, tok, st["out"][rows, idx])
         act = active.to(torch.int32)
-        st["tok"] = tok
+        st["tok"].copy_(tok)
         st["pos"] += act
         st["remaining"] -= act
         st["n_out"] += act
+        return lg
+
+    def _cache_pairs(self):
+        """(pool leaf [slots, ...], staging leaf [1, ...]) of every cache."""
+        return list(zip(tree_leaves(self._tcache) + tree_leaves(self._scache),
+                        tree_leaves(self._tstage) + tree_leaves(self._sstage)))
 
     @torch.no_grad()
-    def _extend(self, chunk_tokens: np.ndarray, slot: int, req: Request,
-                start: int, n_valid: int, is_last: bool, req_key: int):
-        model, st = self.model, self._state
-        # batch-1 views of this slot's caches: written in place; the first
-        # chunk zeroes them so the previous occupant can never leak through
-        tc = tree_map(lambda x: x[slot:slot + 1], self._tcache)
-        sc = tree_map(lambda x: x[slot:slot + 1], self._scache)
-        if start == 0:
-            for x in tree_leaves(tc) + tree_leaves(sc):
-                x.zero_()
-        tokens = torch.as_tensor(chunk_tokens, dtype=torch.int64)[None, :]
-        if self.device.type == "cuda":  # pinned: the copy does not stall the host
-            tokens = tokens.pin_memory().to(self.device, non_blocking=True)
-        smashed = model.tower_extend(client_view(self.params["towers"], req.client),
-                                     {"tokens": tokens}, tc, start, n_valid)
-        logits = model.server_extend(self.params["server"], smashed, sc, start,
-                                     n_valid)
+    def _extend(self, client: int):
+        """One chunk of the request in the slot that `_facts` names, through
+        client's tower."""
+        model, st, C = self.model, self._state, self.chunk
+        f = self._facts
+        slot = f[C + _SLOT:C + _SLOT + 1]  # [1]
+        start, n_valid = f[C + _START], f[C + _NVALID]
+        is_last = f[C + _LAST] != 0
+        key = f[C + _KEY:C + _KEY + 1]
+        temp = f[C + _TEMP:C + _TEMP + 1].to(torch.int32).view(torch.float32)
+        # the slot's caches, staged; the first chunk zeroes them so the
+        # previous occupant can never leak through
+        first = start == 0
+        for pool, stage in self._cache_pairs():
+            torch.index_select(pool, 0, slot, out=stage)
+            stage.masked_fill_(first, 0)
+        smashed = model.tower_extend(client_view(self.params["towers"], client),
+                                     {"tokens": f[None, :C]}, self._tstage,
+                                     start, n_valid)
+        logits = model.server_extend(self.params["server"], smashed,
+                                     self._sstage, start, n_valid)
+        for pool, stage in self._cache_pairs():
+            pool.index_copy_(0, slot, stage)
 
-        st["pos"][slot] = start + n_valid
-        st["client"][slot] = req.client
-        st["remaining"][slot] = req.new_tokens - 1 if is_last else 0
-        st["n_out"][slot] = 1 if is_last else 0
-        st["key"][slot] = req_key
-        st["temp"][slot] = req.temperature
-        if is_last:
-            # sample the first output token at the last real prompt
-            # position (same key schedule as _decode)
-            lg = logits[:, -1, :]
-            self._finite &= torch.isfinite(lg).all()
-            if req.temperature > 0.0:
-                key = torch.full((1,), fold_in(req_key, start + n_valid - 1),
-                                 dtype=torch.int64, device=self.device)
-                tok0 = sample(lg, req.temperature, key)[0]
-            else:
-                tok0 = torch.argmax(lg[0]).to(torch.int32)
-            st["tok"][slot] = tok0
-            st["out"][slot, 0] = tok0
+        # the first output token at the last real prompt position (same key
+        # schedule as _decode), kept on the final chunk only
+        lg = logits[:, -1, :]
+        self._finite &= torch.isfinite(lg).all() | ~is_last
+        sampled = sample(lg, temp, fold_in(key, start + n_valid - 1))
+        greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+        tok0 = torch.where(temp > 0.0, sampled, greedy)
+
+        def put(name, value):
+            col = st[name]
+            col.index_copy_(0, slot, value.reshape(1).to(col.dtype))
+
+        put("pos", start + n_valid)
+        put("client", torch.full_like(slot, client))
+        put("remaining", torch.where(is_last, f[C + _NEW] - 1, 0))
+        put("n_out", is_last)
+        put("key", key)
+        put("temp", temp)
+        put("tok", torch.where(is_last, tok0, st["tok"].index_select(0, slot)))
+        out0 = st["out"][:, 0]
+        out0.index_copy_(0, slot, torch.where(is_last, tok0,
+                                              out0.index_select(0, slot)))
 
     # ------------------------------------------------------------------
     # host scheduler
@@ -260,10 +315,19 @@ class ContinuousEngine:
         start = adm.done_tokens
         n_valid = min(C, L - start)
         is_last = start + n_valid >= L
-        chunk = np.zeros((C,), np.int64)
-        chunk[:n_valid] = np.asarray(req.tokens[start:start + n_valid])
-        key = req.key if req.key is not None else fold_in(self.seed, req.id)
-        self._extend(chunk, adm.slot, req, start, n_valid, is_last, key)
+        facts = np.zeros((C + N_FACTS,), np.int64)
+        facts[:n_valid] = np.asarray(req.tokens[start:start + n_valid])
+        facts[C + _SLOT], facts[C + _START] = adm.slot, start
+        facts[C + _NVALID], facts[C + _LAST] = n_valid, is_last
+        facts[C + _KEY] = (req.key if req.key is not None
+                           else fold_in(self.seed, req.id))
+        facts[C + _NEW] = req.new_tokens
+        facts[C + _TEMP] = np.float32(req.temperature).view(np.int32)
+        host = torch.from_numpy(facts)
+        if self.device.type == "cuda":  # pinned: the copy does not stall the host
+            host = host.pin_memory()
+        self._facts.copy_(host, non_blocking=True)
+        self._extend_steps[req.client].run()
         adm.done_tokens = start + n_valid
         self.stats["extend_steps"] += 1
         if is_last:
@@ -285,26 +349,28 @@ class ContinuousEngine:
             self._slot_req[s] = None
             self._free.append(s)
 
-    def _decode_once(self):
+    def _decode_once(self) -> Optional[torch.Tensor]:
+        """One decode step if a slot is active: its logits [slots, V] (the
+        step's buffer, overwritten by the next step), else None."""
         live = [s for s in range(self.slots)
                 if self._slot_req[s] is not None and self._slot_remaining[s] > 0]
         if not live:
-            return False
-        self._decode(any(self._slot_req[s].temperature > 0.0 for s in live))
+            return None
+        logits = self._decode_step.run()
         self.stats["decode_steps"] += 1
         for s in live:
             self._slot_remaining[s] -= 1
             self._slot_emitted[s] += 1
             self._maybe_finish(s)
         self.stats["decode_slot_tokens"] += len(live)
-        return True
+        return logits
 
     def run(self):
         """Process every submitted request to completion. Returns
         {request id -> int32 array of new_tokens sampled tokens}."""
         while True:
             issued = self._issue_chunk()
-            decoded = self._decode_once()
+            decoded = self._decode_once() is not None
             if not issued and not decoded:
                 break
         out = {rid: toks.cpu().numpy() for rid, toks in self._results.items()}
@@ -336,6 +402,7 @@ class ContinuousEngine:
         """Decode until no slot is active, or for at most max_steps steps.
         Returns slot-tokens emitted."""
         t0, steps = self.stats["decode_slot_tokens"], 0
-        while (max_steps is None or steps < max_steps) and self._decode_once():
+        while ((max_steps is None or steps < max_steps)
+               and self._decode_once() is not None):
             steps += 1
         return self.stats["decode_slot_tokens"] - t0

@@ -7,6 +7,18 @@ shared server stack. Requests are grouped by client: batch layout
     prefill_step(params, inputs) -> (logits [M*b,1,V], caches)
     decode_step(params, caches, tokens [M,b,1], pos) -> logits [M*b,1,V]
 
+`pos` is an int or a device scalar. `generate_sequential` runs the decode
+step as a CUDA graph (`serve/graphs.py`), as the reference jits it with a
+traced `pos`: one graph per batch shape, captured on the first call of
+that shape over static buffers (the caches, the token, pos). Each call
+copies its prefill's caches into them once (`load_caches`) and drops its
+own, so between calls the engine holds one set of caches per batch shape
+it has served, and a call holds two only from its prefill to that copy.
+pos is set by the host once and advanced inside the graph, the token
+written by the host's sampling (which stays outside the graph). A second
+call of the shape captures nothing. Prefill stays eager, as the
+reference traces it anew per prompt shape.
+
 `inputs` is {"tokens": [M,b,S]} plus the VLM's "vis" or the
 encoder-decoder's "frames" ([M,b,...]). The caches hold, beside the
 tower and server caches, the `extras` that decode reads again (the VLM's
@@ -23,9 +35,10 @@ import torch
 
 from repro_torch.core.split import client_view
 from repro_torch.models.registry import Model
+from repro_torch.serve.graphs import Step, StepGraphs
 from repro_torch.serve.sampling import fold_in, sample
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -34,6 +47,14 @@ class ServeCaches(NamedTuple):
     tower: List[PyTree]  # one tower cache per client, batch b
     server: PyTree  # batch M*b
     extras: Dict[str, torch.Tensor]  # uploads decode reads again (vis_proj)
+
+
+class _DecodeBuffers(NamedTuple):
+    """One batch shape's static decode inputs and its step."""
+    caches: ServeCaches
+    tok: torch.Tensor  # [M, b, 1] int64
+    pos: torch.Tensor  # () int64
+    step: Step
 
 
 def _cat(parts: List[dict]) -> dict:
@@ -62,7 +83,8 @@ def build_prefill_step(model: Model, num_clients: int, max_len: int) -> Callable
 
 def build_decode_step(model: Model, num_clients: int) -> Callable:
     def decode_step(params, caches: ServeCaches, tokens, pos):
-        """tokens: [M,b,1] next input token; pos: int. -> logits."""
+        """tokens: [M,b,1] next input token; pos: int or device scalar.
+        -> logits."""
         b = tokens.shape[1]
         smashed = []
         for m in range(num_clients):
@@ -92,6 +114,10 @@ def check_params_device(params, device) -> torch.device:
     return dev
 
 
+def _leaves(caches: ServeCaches) -> list:
+    return tree_leaves([caches.tower, caches.server, caches.extras])
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -105,7 +131,7 @@ class ServeEngine:
     loop kept beside it."""
 
     def __init__(self, model: Model, params, num_clients: int, max_len: int,
-                 sample_seed: int = 0, device="cuda"):
+                 sample_seed: int = 0, device="cuda", graphs: bool = True):
         self.device = check_params_device(params, device)
         self.model = model
         self.params = params
@@ -116,6 +142,8 @@ class ServeEngine:
         self.sample_seed = sample_seed
         self._prefill = build_prefill_step(model, num_clients, max_len)
         self._decode = build_decode_step(model, num_clients)
+        self.graphs = StepGraphs(self.device, graphs)  # the sequential steps
+        self._buffers: Dict[tuple, _DecodeBuffers] = {}  # by batch shape
         self._cont = {}  # (b, S) -> ContinuousEngine
 
     @torch.no_grad()
@@ -139,7 +167,8 @@ class ServeEngine:
             # chunk = prompt length: whole-prompt extend, one slot per row
             self._cont[key] = ContinuousEngine(
                 self.model, self.params, M, self.max_len, slots=M * b,
-                chunk=S, seed=self.sample_seed, device=self.device)
+                chunk=S, seed=self.sample_seed, device=self.device,
+                graphs=self.graphs.enabled)
         eng = self._cont[key]
         for m in range(M):
             for j in range(b):
@@ -165,15 +194,64 @@ class ServeEngine:
         inputs = stage_inputs(inputs, self.device)
         b, S = inputs["tokens"].shape[1], inputs["tokens"].shape[2]
         logits, caches = self._prefill(self.params, inputs)
-        out = []
         tok = self._sample(logits, temperature, rng, 0).reshape(M, b, 1)
-        for t in range(new_tokens):
+        if new_tokens <= 1:
+            return tok.cpu()
+        buf = self.load_caches(caches, b, S)
+        del caches  # the static caches are the only copy from here on
+        return self.decode(buf, tok, new_tokens, temperature, rng).cpu()
+
+    @torch.no_grad()
+    def load_caches(self, caches: ServeCaches, b: int,
+                    start: int) -> _DecodeBuffers:
+        """The batch shape's static decode buffers (its step captured over
+        them on the shape's first call), filled from a prefill's caches by
+        one copy, with pos = start, the first position to decode. The
+        caller drops the prefill's caches after this."""
+        buf = self._decode_buffers(caches, b)
+        for dst, src in zip(_leaves(buf.caches), _leaves(caches)):
+            dst.copy_(src)
+        buf.pos.fill_(start)
+        return buf
+
+    @torch.no_grad()
+    def decode(self, buf: _DecodeBuffers, tok, new_tokens: int,
+               temperature: float = 0.0,
+               rng: Optional[int] = None) -> torch.Tensor:
+        """The prefill's first token tok [M,b,1] and new_tokens - 1 decode
+        steps from `buf` (`load_caches`), each a replay of its graph.
+        Returns int32 [M, b, new_tokens] on the engine's device."""
+        out = [tok]
+        for t in range(1, new_tokens):
+            buf.tok.copy_(tok)
+            logits = buf.step.run()
+            tok = self._sample(logits, temperature, rng, t).reshape(tok.shape)
             out.append(tok)
-            if t == new_tokens - 1:
-                break
-            logits = self._decode(self.params, caches, tok.long(), S + t)
-            tok = self._sample(logits, temperature, rng, t + 1).reshape(M, b, 1)
-        return torch.cat(out, dim=-1).cpu()
+        return torch.cat(out, dim=-1)
+
+    def _decode_buffers(self, caches: ServeCaches, b: int) -> _DecodeBuffers:
+        """The static decode inputs of this batch shape and its step,
+        captured over them (zeros) on the shape's first call."""
+        key = (b,) + tuple((tuple(x.shape), x.dtype) for x in _leaves(caches))
+        buf = self._buffers.get(key)
+        if buf is None:
+            static = ServeCaches(*(tree_map(torch.zeros_like, part)
+                                   for part in caches))
+            tok = torch.zeros((self.M, b, 1), dtype=torch.int64, device=self.device)
+            pos = torch.zeros((), dtype=torch.int64, device=self.device)
+            # the step does not hold the engine (no reference cycle: an
+            # engine no caller holds is freed at once)
+            decode, params = self._decode, self.params
+
+            @torch.no_grad()
+            def step():
+                logits = decode(params, static, tok, pos)
+                pos.add_(1)
+                return logits
+
+            buf = self._buffers[key] = _DecodeBuffers(static, tok, pos,
+                                                      self.graphs.step(step))
+        return buf
 
     @staticmethod
     def _sample(logits, temperature, rng, step):

@@ -72,12 +72,12 @@ def test_plain_decode_matches_jax(case):
 def test_wrapper_runs_plain_version_on_cpu_uncounted():
     q, k, v, kv_valid, _ = _inputs(DECODE_CASES[0])
     q, k, v = (torch.tensor(a) for a in (q, k, v))
-    before = (flash_decode.launches, decode_reference.cuda_calls)
+    before = (flash_decode.counts.read(), decode_reference.cuda_calls)
     out = flash_decode(q, k, v, kv_valid=torch.tensor(kv_valid))
     torch.testing.assert_close(
         out, decode_reference(q, k, v, kv_valid=torch.tensor(kv_valid)),
         rtol=0, atol=0)
-    assert (flash_decode.launches, decode_reference.cuda_calls) == before
+    assert (flash_decode.counts.read(), decode_reference.cuda_calls) == before
 
 
 def test_row_without_visible_slot_is_zero():

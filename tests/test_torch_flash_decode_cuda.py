@@ -85,10 +85,9 @@ def test_cuda_kernel_matches_plain(case):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dtype = case[6]
     q, k, v, kw = _inputs(case)
-    n, plain = flash_decode.launches, decode_reference.cuda_calls
+    n, plain = flash_decode.counts.total(), decode_reference.cuda_calls
     out = flash_decode(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert flash_decode.launches == n + 1
+    assert flash_decode.counts.total() == n + 1
     assert decode_reference.cuda_calls == plain
     torch.testing.assert_close(out.float(), decode_reference(q, k, v, **kw).float(),
                                rtol=0, atol=TOL[dtype])
@@ -113,13 +112,11 @@ def test_cuda_ring_and_cross_modes_match_plain(case, dtype):
         kv_valid = torch.clamp(pos + 1, max=cap)
     else:  # every key of the source
         kv_valid = torch.full((B,), cap, dtype=torch.int32, device="cuda")
-    counts = (flash_decode.launches, flash_decode.launches_ring,
-              flash_decode.launches_cross)
+    before = flash_decode.counts.read()
     out = flash_decode(q, k, v, kv_valid=kv_valid, mode=mode)
-    torch.cuda.synchronize()
-    assert flash_decode.launches == counts[0] + 1
-    assert flash_decode.launches_ring == counts[1] + (mode == "ring")
-    assert flash_decode.launches_cross == counts[2] + (mode == "cross")
+    after = flash_decode.counts.read()
+    assert {m: after[m] - before[m] for m in after} == {
+        m: int(m == mode) for m in after}
     torch.testing.assert_close(out.float(),
                                decode_reference(q, k, v, kv_valid=kv_valid).float(),
                                rtol=0, atol=TOL[dtype])

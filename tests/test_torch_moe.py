@@ -85,10 +85,9 @@ def test_moe_forward_matches_jax(name):
     y_j, aux_j, (gp_j, gx_j) = _reference(name)
     pt = tree_map(lambda a: torch.tensor(a, requires_grad=True), p)
     xt = torch.tensor(x, requires_grad=True)
-    moe_mod.moe_forward.tally = []
+    moe_mod.moe_forward.tally = tally = torch.zeros(2, dtype=torch.int64)
     try:
         y, aux = moe_mod.moe_forward(pt, xt, cfg)
-        tally = torch.stack(moe_mod.moe_forward.tally).sum(0)
     finally:
         moe_mod.moe_forward.tally = None
     assert int(tally[1]) == B * S * cfg.experts_per_token  # rows routed

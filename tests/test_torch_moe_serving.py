@@ -86,12 +86,12 @@ def test_tower_decode_dispatches_each_slot_alone():
 
     def port(rows_alone):
         cache = jax.tree.map(lambda x: x.expand(SLOTS, *x.shape[1:]).clone(), cache1)
-        TM.moe_forward.tally = []
+        TM.moe_forward.tally = torch.zeros(2, dtype=torch.int64)
         try:
             with torch.no_grad():
                 h = model.tower_decode(tp, {"tokens": torch.as_tensor(tok)}, cache,
                                        torch.as_tensor(pos), rows_alone=rows_alone)["h"]
-            kept, routed = torch.stack(TM.moe_forward.tally).sum(0).tolist()
+            kept, routed = TM.moe_forward.tally.tolist()
         finally:
             TM.moe_forward.tally = None
         return h, routed - kept

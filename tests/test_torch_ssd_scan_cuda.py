@@ -12,8 +12,9 @@ mamba2-130m's), serving's extend shapes (one row of one 128-position
 chunk resumed from an f32 state: mamba2-130m's and zamba2-7b's), and the
 tensor-core path (bf16, P and N multiples of 16) with an initial state, at N = 128, at P = 128, with P and N below one
 64-column block, with a ragged last chunk and with an odd head count (one
-head per block). Each launch is counted by path (`ssd_scan.launches_tc`
-for the tensor-core path, as `scan_plan` picks it), and a repeat launch
+head per block). Each launch counts itself on the card by path
+(`ssd_scan.counts`: "tc" for the tensor-core path, "fma" for the other,
+as `scan_plan` picks them), and a repeat launch
 must be bit-equal. Tolerances: y within 2e-5 in f32 and 5e-2 in bf16, the
 final state within 1e-4 (relative to its largest entry at the full-width
 shapes, where the state sums thousands of terms).
@@ -78,12 +79,12 @@ def test_cuda_kernel_matches_plain(case):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     chunk, dtype = case[5], case[6]
     x, dtv, A, Bm, Cm, h0 = _inputs(case)
-    n, n_tc, plain = ssd_scan.launches, ssd_scan.launches_tc, ssd_reference.cuda_calls
+    before, plain = ssd_scan.counts.read(), ssd_reference.cuda_calls
     y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
-    torch.cuda.synchronize()
-    assert ssd_scan.launches == n + 1
-    tc = scan_plan(*x.shape, Bm.shape[-1], x.dtype)["path"] == "tc"
-    assert ssd_scan.launches_tc == n_tc + int(tc)
+    after = ssd_scan.counts.read()
+    path = scan_plan(*x.shape, Bm.shape[-1], x.dtype)["path"]
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == path) for k in after}
     assert ssd_reference.cuda_calls == plain
     yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0)
     assert y.dtype == x.dtype and st.dtype == torch.float32
@@ -110,9 +111,10 @@ def test_cuda_main_path_shapes_take_the_tensor_core_path(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     x, dtv, A, Bm, Cm, h0 = _inputs(case)
-    n, n_tc = ssd_scan.launches, ssd_scan.launches_tc
+    before = ssd_scan.counts.read()
     ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
-    assert ssd_scan.launches == n + 1 and ssd_scan.launches_tc == n_tc + 1
+    after = ssd_scan.counts.read()
+    assert (after["tc"], after["fma"]) == (before["tc"] + 1, before["fma"])
 
 
 @pytest.mark.cuda
@@ -144,10 +146,9 @@ def test_cuda_extend_chunk_resumes_a_slot_of_the_pool(case):
     n_valid = 64
     for t in (x, dtv, Bm, Cm):
         t[:, n_valid:] = 0
-    n_tc = ssd_scan.launches_tc
+    n_tc = ssd_scan.counts.read()["tc"]
     y, st = ssd_scan(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=pool[1:2])
-    torch.cuda.synchronize()
-    assert ssd_scan.launches_tc == n_tc + 1
+    assert ssd_scan.counts.read()["tc"] == n_tc + 1
     yr, sr = ssd_reference(x, dtv, A, Bm, Cm, chunk=case[5], initial_state=h0)
     torch.testing.assert_close(y.float(), yr.float(), atol=TOL["bfloat16"],
                                rtol=TOL["bfloat16"])
