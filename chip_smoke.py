@@ -163,6 +163,14 @@ Phases, each of which must pass (any failure exits non-zero):
           local SGD step went through K1 in one launch: multi-tensor
           launches == local steps x rounds, leaves updated == 17 x that, no
           per-leaf launch and the plain update run 0 times on the card.
+          A loss that is not finite fails the phase with the first tensor
+          that went non-finite: every local step's update is probed in the
+          run itself (the largest |value| of each gradient before K1 and of
+          each parameter after, kept on the card: a few launches a step)
+          and the message names the leaf, the round and the local step.
+          The probe's host seconds are left out of the times (the rounds
+          are host-bound), and fedavg runs 6 more rounds without it to
+          read its cost directly.
           Reports per algorithm s per round, gradient steps per s, peak
           memory, the host's time inside K1's wrapper (the leaf table's
           build and copy), acc_mtl on the held-out batch, and round_bytes
@@ -340,6 +348,42 @@ Phases, each of which must pass (any failure exits non-zero):
           the CPU bit-equal; `repro_torch.launch.serve --checkpoint` serves
           it twice (continuous engine, greedy) with equal tokens. The
           files (3.94 GB each) live under build/ckpt and are removed.
+  pipeline  the prefetch pipeline (train/pipeline.py): full paper-resnet16
+          (M = 10, b = 8, lr 0.1, 200 mtsl rounds) through
+          `repro_torch.launch.train` at --prefetch 0 and 2 under
+          deterministic algorithms: history and final state bit-equal, K1
+          once a round (17 leaves); mamba2-130m's full config (M = 4, b =
+          4, S = 256, adamw 3e-3, the 4096-token source) 10 rounds at both
+          depths: bit-equal, K3 counted on the card equal at both depths
+          (every launch tensor-core), K1 once a round. Then rounds/s of 50
+          resnet16 rounds at depths 0, 2, 2, 0 and the busy share of 20
+          profiled rounds at each depth, with the default convolutions;
+          and the host's synthesis ms a round alone, resnet16's and the
+          LM's.
+  async   the event engine (train/events.py): paper-resnet16 20 rounds
+          under --async on star(M) with uniform capability and ideal links
+          == the synchronous run bit for bit; then train(async_mode) on
+          multi-server (2 servers, --sync-every 2, half the clients
+          stragglers, decay 0.5, max staleness 4, 10 Mb/s links):
+          staleness > 0 seen, K1 launches == applies, s per apply; an
+          EventEngine snapshot taken with cohorts in flight, saved in the
+          msgpack checkpoint and resumed: bit-equal to the uninterrupted
+          run (deterministic algorithms).
+  cached  --data cached on paper-resnet16: a per-client cache and a
+          Dirichlet(0.1) cache of 512 examples a client, each built by the
+          launcher on first use under build/chip_cache; 20 rounds from each
+          == the same rows trained from memory, bit for bit; build s,
+          bytes, host ms a round and rounds/s against synthesis. The caches
+          are removed.
+  chunk   client chunking: paper-resnet16 at M = 64 (b = 8), dense against
+          --client-chunk 8, 3 rounds at lr 0.01 under deterministic
+          algorithms: losses within 1e-5 of their scale, parameters within
+          1e-5 (CHUNK_LOSS_TOL, the CPU tests'); peak GiB and s a round of
+          10 rounds of each; the host scan round (core/scan_round.py) at M
+          32 and 64 with chunk 8 against the dense round (losses within
+          the same tolerance, M/8 + 1 K1 launches a round), both M on the
+          same per-block functions (the port is eager: there is no compile
+          to count).
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -355,7 +399,9 @@ adds as its capture recorded them.
 Prints the card's name and power limit first, a `{"kernels": [...]}`
 line (K2's, K3's and K4's entries also carry `serve_launches`, their
 launches in the serving phases: K4's ring and cross decodes and K2's
-cross and non-causal prefill attention apart), and as its last line
+cross and non-causal prefill attention apart; K1's and K3's carry
+`systems_launches`, their launches on the systems layers' paths), and as
+its last line
 `{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only k2,kernel` runs the build and the named
 phases alone and prints no result line (`--only
@@ -369,6 +415,7 @@ or without the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -377,6 +424,7 @@ import sys
 import time
 import traceback
 import warnings
+from typing import NamedTuple
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -522,6 +570,7 @@ BASELINES = ("fedavg", "fedprox", "splitfed", "smofi", "parallelsfl", "fedem")
 # steps, 8 samples per client and step
 BASELINE_RUN = {"arch": "paper-resnet16", "b": 8, "lr": 0.1, "local_steps": 30,
                 "rounds": 15, "k1_leaves": 17}
+BASELINE_UNPROBED_ROUNDS = 6  # fedavg once more without the probe
 LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 10,
                 "lr": 0.05, "local_steps": 2, "data_vocab": 4096}
 # the serving phases of the SSM and hybrid LMs at full width and depth: 8
@@ -2261,7 +2310,7 @@ def baselines_phase(torch, dev):
         host = [0.0]
         _reset_counts(torch)
         t0 = time.perf_counter()
-        with _k1_host_time(host):
+        with _k1_host_time(host), _nonfinite_probe(torch) as probe:
             state, hist = train(model, sgd(c["lr"]),
                                 client_batches(src, c["b"] * ls, seed=0), tcfg, M,
                                 log=lambda _: None)
@@ -2270,7 +2319,8 @@ def baselines_phase(torch, dev):
         counts = _read_counts(torch)
         losses = [e["loss"] for e in hist]
         if len(hist) != rounds or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"baselines {name}: losses {losses}")
+            raise AssertionError(f"baselines {name}: losses {losses}; "
+                                 + _first_nonfinite(torch, name, state, probe.rows, ls))
         steps = ls * rounds
         if not (counts["k1"] == steps and counts["k1_leaves"] == c["k1_leaves"] * steps
                 and counts["k1_single"] == counts["k1_plain"] == 0):
@@ -2278,6 +2328,7 @@ def baselines_phase(torch, dev):
                 f"baselines {name}: K1 counts {counts}, want {steps} launches over "
                 f"{c['k1_leaves']} leaves each, no per-leaf launch, no plain update")
         ev = alg.eval_fn(model, M)(state, held)
+        times = [e["time"] for e in hist]
         if name == "fedavg":  # after the counts and the eval were read
             state, prof = _k1_wrapper_profile(
                 torch, alg.round_fn(model, M, hp),
@@ -2285,10 +2336,30 @@ def baselines_phase(torch, dev):
                                    dev), full_schedule(M, ls))
             out["fedavg_k1_wrapper_profile"] = prof
             print(f"  fedavg, one round profiled: {prof}", flush=True)
-        times = [e["time"] for e in hist]
-        s_round = (times[-1] - times[0]) / (rounds - 1)
+            # the probe's cost, read directly: the same run unprobed
+            u = BASELINE_UNPROBED_ROUNDS
+            torch.cuda.synchronize()
+            _, hist_u = train(model, sgd(c["lr"]),
+                              client_batches(src, c["b"] * ls, seed=0),
+                              dataclasses.replace(tcfg, steps=ls * u), M,
+                              log=lambda _: None)
+            out["fedavg_unprobed"] = {
+                "rounds": u, "s_per_round": (hist_u[-1]["time"] - hist_u[0]["time"])
+                / (u - 1),
+                # the probed run's same rounds, its probe's host seconds out
+                "probed_run_s_per_round": (times[u - 1] - times[0]
+                                           - sum(probe.host_s[ls:ls * u])) / (u - 1)}
+            del hist_u
+        # times over the unprobed work: the probe's host seconds left out
+        # (the rounds are host-bound; fedavg's unprobed run above checks it)
+        probe_s, probe_s_late = sum(probe.host_s), sum(probe.host_s[ls:])
+        s_round = (times[-1] - times[0] - probe_s_late) / (rounds - 1)
+        wall -= probe_s
         res = {"losses": losses, "s_per_round": s_round,
-               "first_round_s": times[0], "grad_steps_per_s": ls / s_round,
+               "s_per_round_probed": (times[-1] - times[0]) / (rounds - 1),
+               "probe_host_s": probe_s,
+               "first_round_s": times[0] - sum(probe.host_s[:ls]),
+               "grad_steps_per_s": ls / s_round,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                "k1_launches": counts["k1"], "k1_leaves_updated": counts["k1_leaves"],
                "k1_host_s": host[0], "k1_host_share": host[0] / wall,
@@ -2306,6 +2377,70 @@ def baselines_phase(torch, dev):
         del state, ev
         torch.cuda.empty_cache()
     return out
+
+
+def _update_leaf_names(state) -> list:
+    """Names of the leaves a baseline's local step updates, in its update
+    list's order: the towers', then the server's (or the servers' /
+    FedEM's components')."""
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    if isinstance(state, tuple):  # fedem: (components, pi)
+        return [f"components/{p}" for p, _ in tree_leaves_with_path(state[0])]
+    return [f"{key}/{p}" for key in ("towers", "server", "servers") if key in state
+            for p, _ in tree_leaves_with_path(state[key])]
+
+
+class _Probe(NamedTuple):
+    rows: list  # per local step, a [2, leaves] device tensor
+    host_s: list  # per local step, the host's seconds in the probe's own calls
+
+
+@contextlib.contextmanager
+def _nonfinite_probe(torch):
+    """Yields a _Probe whose rows get, for every local step a baseline
+    takes, the largest |value| of each leaf's update input (its gradient;
+    SMoFi's server takes its fused momentum) before K1 and of each
+    parameter after, as one [2, leaves] device tensor (`_foreach_norm` with
+    ord=inf: a few launches a step, no wait for the card). A non-finite
+    entry marks a non-finite tensor. host_s gets the host's seconds in
+    those calls, so a timing can leave them out."""
+    from repro_torch.core import federation
+
+    real, inf = federation._sgd_step, float("inf")
+    probe = _Probe([], [])
+
+    def probed(ps, gs, etas):
+        t0 = time.perf_counter()
+        g = torch.stack(torch._foreach_norm(list(gs), inf))
+        t1 = time.perf_counter()
+        real(ps, gs, etas)
+        t2 = time.perf_counter()
+        probe.rows.append(
+            torch.stack([g, torch.stack(torch._foreach_norm(list(ps), inf))]))
+        probe.host_s.append(t1 - t0 + time.perf_counter() - t2)
+
+    federation._sgd_step = probed
+    try:
+        yield probe
+    finally:
+        federation._sgd_step = real
+
+
+def _first_nonfinite(torch, name, state, rows, local_steps: int) -> str:
+    """The first non-finite tensor of a baseline's run from its probe rows
+    (`_nonfinite_probe`): the algorithm, the round, the local step, and the
+    gradient or parameter leaf."""
+    if not rows:
+        return "no local step ran"
+    bad = ~torch.isfinite(torch.stack(rows).cpu())  # [steps, 2, leaves]
+    names = _update_leaf_names(state)
+    for step, kind, leaf in bad.nonzero().tolist():
+        r, t = divmod(step, local_steps)
+        what = names[leaf] if len(names) == bad.shape[2] else f"leaf #{leaf}"
+        return (f"first non-finite tensor: {name}, round {r + 1}, local step "
+                f"{t + 1}, the {('gradient', 'parameter')[kind]} of {what}")
+    return "every gradient and parameter stayed finite (the loss overflowed first)"
 
 
 def _baseline_card_vs_cpu(torch, name, model, M, hp, init, stream,
@@ -3531,11 +3666,501 @@ def ckpt_phase(torch, dev):
             "phase_s": time.perf_counter() - t0}
 
 
+# the training loop's systems layers (pipeline, async, cached, chunk): the
+# train phase's paper-resnet16 (M = 10, b = 8, lr 0.1) unless stated
+SYS_ARCH, SYS_B, SYS_LR = "paper-resnet16", 8, 0.1
+SYS_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
+          "data_vocab": 4096, "rounds": 10}
+SYS_TIMED_ROUNDS = 50  # unprofiled rounds timed at each prefetch depth
+SYS_PROFILE_ROUNDS = 20  # profiled rounds at each prefetch depth
+ASYNC_RUN = {"rounds": 20, "num_servers": 2, "sync_every": 2, "straggler_frac": 0.5,
+             "staleness_decay": 0.5, "max_staleness": 4, "link_mbps": 10.0,
+             "cut": 12}
+CACHED_RUN = {"rounds": 20, "examples": 512, "alpha": 0.1, "dir": "build/chip_cache"}
+CHUNK_RUN = {"M": 64, "chunk": 8, "rounds": 3, "lr": 0.01, "timed_rounds": 10,
+             "scan_M": (32, 64)}
+CHUNK_LOSS_TOL = 1e-5  # of max(1, |loss|), and on parameters: the CPU tests'
+
+
+def _launch(argv):
+    """repro_torch.launch.train.main(argv) with its output captured."""
+    from repro_torch.launch import train as launch_train
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state, hist = launch_train.main(argv)
+    return state, hist, out.getvalue()
+
+
+def _sys_argv(steps: int, *extra) -> list:
+    return ["--arch", SYS_ARCH, "--algorithm", "mtsl", "--device", "cuda",
+            "--steps", str(steps), "--batch-per-client", str(SYS_B), "--lr",
+            str(SYS_LR), "--seed", "0", *extra]
+
+
+def _as_launcher(torch, model, M: int, batches, rounds: int, prefetch: int,
+                 lr: float = SYS_LR, **kw):
+    """train() as the launcher calls it for mtsl on a classifier (sgd at lr,
+    server_scaled(M), the default schedule, seed 0)."""
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.schedule import ScheduleConfig
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, train
+
+    kw = {"schedule": ScheduleConfig(seed=0), **kw}
+    tcfg = TrainConfig(steps=rounds, algorithm="mtsl", lr=lr, seed=0,
+                       batch_per_client=SYS_B, device="cuda", prefetch=prefetch,
+                       **kw)
+    return train(model, sgd(lr), batches, tcfg, M, component_lr=server_scaled(M),
+                 log=lambda _: None)
+
+
+def _image_source(cfg, M: int, num_tasks=None):
+    from repro_torch.data.synthetic import MultiTaskImageSource
+
+    return MultiTaskImageSource(num_classes=M if num_tasks is None else cfg.num_classes,
+                                num_tasks=num_tasks, image_size=cfg.image_size,
+                                channels=cfg.image_channels, seed=0)
+
+
+def _check_k1(counts: dict, launches: int, what: str, leaves=None):
+    if not (counts["k1"] == launches and counts["k1_single"] == counts["k1_plain"] == 0
+            and (leaves is None or counts["k1_leaves"] == leaves)):
+        raise AssertionError(f"{what}: K1 counts {counts}, want {launches} launches"
+                             + (f" over {leaves} leaves" if leaves else "")
+                             + ", no per-leaf launch, no plain update")
+
+
+def _profiled_rounds(torch, fn) -> dict:
+    """Wall and device time of fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    return {"wall_s": wall, "device_s": device, "device_busy_share": device / wall}
+
+
+def pipeline_phase(torch, dev):
+    """pipeline (see the module docstring): prefetch 0 against 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainConfig, train
+
+    leaves = next(lv for arch, _, lv in TRAIN_RUNS if arch == SYS_ARCH)
+    out = {"arch": SYS_ARCH, "rounds": ROUNDS, "depths": {}}
+    runs = {}
+    for depth in (0, 2):
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        with _deterministic(torch):
+            state, hist, _ = _launch(_sys_argv(ROUNDS, "--prefetch", str(depth)))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(torch)
+        _check_k1(counts, ROUNDS, f"pipeline depth {depth}", leaves * ROUNDS)
+        runs[depth] = (state, [e["loss"] for e in hist])
+        out["depths"][depth] = {"k1_launches": counts["k1"], "deterministic_run_s": wall}
+    if runs[0][1] != runs[2][1] or not _state_bits_equal(torch, runs[0][0], runs[2][0]):
+        raise AssertionError(f"pipeline: prefetch 2 differs from 0: {runs[0][1]} vs "
+                             f"{runs[2][1]}")
+    out["bit_equal"] = True
+    del runs
+
+    # rounds/s (depths in the order 0, 2, 2, 0: the host's drift shows as a
+    # gap between a depth's two runs) and the busy share at each depth, as
+    # a user runs it; and the host's synthesis alone
+    cfg = get_config(SYS_ARCH)
+    M = cfg.num_clients
+    model = build_model(cfg)
+    src = _image_source(cfg, M)
+    R, P = SYS_TIMED_ROUNDS, SYS_PROFILE_ROUNDS
+    _as_launcher(torch, model, M, client_batches(src, SYS_B, steps=5, seed=0), 5, 2)
+    for depth in (0, 2, 2, 0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _as_launcher(torch, model, M, client_batches(src, SYS_B, steps=R, seed=0), R,
+                     depth)
+        torch.cuda.synchronize()
+        out["depths"][depth].setdefault("rounds_per_s", []).append(
+            R / (time.perf_counter() - t0))
+    for depth in (0, 2):
+        prof = _profiled_rounds(torch, lambda: _as_launcher(
+            torch, model, M, client_batches(src, SYS_B, steps=P, seed=0), P, depth))
+        out["depths"][depth].update(timed_rounds=R, profiled_rounds=P, **prof)
+    t0 = time.perf_counter()
+    for _ in client_batches(src, SYS_B, steps=R, seed=0):
+        pass
+    out["host_synthesis_ms_per_round"] = (time.perf_counter() - t0) * 1e3 / R
+
+    # mamba2-130m at full width: K3 counted on the card at both depths
+    c = SYS_LM
+    cfg = get_config(c["arch"])
+    M, R = c["M"], c["rounds"]
+    model = build_model(cfg)
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    want = _lm_launches_per_round(cfg, M)
+    lm = {}
+    for depth in (0, 2):
+        _reset_counts(torch)
+        t0 = time.perf_counter()
+        with _deterministic(torch):
+            state, hist = train(
+                model, adamw(c["lr"]),
+                client_batches(src, c["b"], steps=R, seed=0, seq_len=c["S"]),
+                TrainConfig(steps=R, lr=c["lr"], log_every=1, seed=0,
+                            device=dev.type, prefetch=depth),
+                M, component_lr=server_scaled(M), log=lambda _: None)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(torch)
+        _check_k1(counts, R, f"pipeline {c['arch']} depth {depth}")
+        if not (counts["k3"] == counts["k3_tc"] == want["k3"] * R
+                and counts["k3_plain"] == 0):
+            raise AssertionError(f"pipeline {c['arch']} depth {depth}: counts {counts},"
+                                 f" want {want['k3']} K3 launches a round")
+        lm[depth] = (state, [e["loss"] for e in hist], counts, wall)
+    if lm[0][1] != lm[2][1] or not _state_bits_equal(torch, lm[0][0], lm[2][0]):
+        raise AssertionError(f"pipeline {c['arch']}: prefetch 2 differs from 0")
+    out["lm"] = {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": R,
+                 "bit_equal": True, "loss_first": lm[0][1][0], "loss_last": lm[0][1][-1],
+                 "k3_launches": {d: lm[d][2]["k3"] for d in lm},
+                 "k1_launches": {d: lm[d][2]["k1"] for d in lm},
+                 "deterministic_run_s": {d: lm[d][3] for d in lm}}
+    del lm
+
+    t0 = time.perf_counter()
+    for _ in client_batches(src, c["b"], steps=R, seed=0, seq_len=c["S"]):
+        pass
+    out["lm"]["host_synthesis_ms_per_round"] = (time.perf_counter() - t0) * 1e3 / R
+    return out
+
+
+def async_phase(torch, dev):
+    """async (see the module docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.schedule import ScheduleConfig, capability_profile, schedule_stream
+    from repro_torch.core.topology import build_topology, mbps
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import load_algorithm_state, save_algorithm_state
+    from repro_torch.train.events import EventEngine
+    from repro_torch.train.loop import stage_batch
+    from repro_torch.utils.device import generator
+
+    c = ASYNC_RUN
+    R = c["rounds"]
+    out = {"arch": SYS_ARCH, "rounds": R}
+    # star(M), uniform capability, ideal links: the synchronous trajectory
+    got = {}
+    for flags in (["--prefetch", "0"], ["--async"]):
+        _reset_counts(torch)
+        with _deterministic(torch):
+            state, hist, _ = _launch(_sys_argv(R, *flags))
+            torch.cuda.synchronize()
+        _check_k1(_read_counts(torch), R, f"async {flags}")
+        got[flags[0]] = (state, {e["round"]: e["loss"] for e in hist})
+    # the async history logs at the cadence and its last apply; the sync
+    # one also its first round: every round both logged must agree
+    (s_sync, l_sync), (s_async, l_async) = got["--prefetch"], got["--async"]
+    if (R not in l_async or any(l_sync.get(r) != x for r, x in l_async.items())
+            or not _state_bits_equal(torch, s_sync, s_async)):
+        raise AssertionError(f"async: star/uniform differs from sync: {l_sync} vs "
+                             f"{l_async}")
+    out["star_bit_equal_to_sync"] = True
+    del got, s_sync, s_async
+
+    # multi-server, stragglers, staleness decay and cut-off
+    cfg = get_config(SYS_ARCH)
+    M = cfg.num_clients
+    model = build_model(cfg)
+    link = mbps(c["link_mbps"])
+    topo = build_topology("multi-server", M, num_servers=c["num_servers"], uplink=link,
+                          downlink=link, backbone=mbps(0.0), sync_every=c["sync_every"])
+    scfg = ScheduleConfig(straggler_frac=c["straggler_frac"], seed=0)
+    kw = dict(topology=topo, schedule=scfg, async_mode=True, log_every=1,
+              staleness_decay=c["staleness_decay"], max_staleness=c["max_staleness"])
+    src = _image_source(cfg, M)
+    _reset_counts(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = _as_launcher(torch, model, M, client_batches(src, SYS_B, steps=R,
+                                                                seed=0), R, 2, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(torch)
+    applies = hist[-1]["round"]
+    stale = [e["staleness"] for e in hist]
+    if not (max(stale) > 0 and all(np.isfinite([e["loss"] for e in hist]))):
+        raise AssertionError(f"async multi-server: staleness {stale}")
+    _check_k1(counts, applies, "async multi-server (one launch per apply)")
+    out["multi_server"] = {
+        "num_servers": c["num_servers"], "sync_every": c["sync_every"],
+        "straggler_frac": c["straggler_frac"], "staleness_decay": c["staleness_decay"],
+        "max_staleness": c["max_staleness"], "dispatches": R, "applies": applies,
+        "max_staleness_seen": max(stale), "k1_launches": counts["k1"],
+        "sim_time": hist[-1]["sim_time"], "run_s": wall, "s_per_apply": wall / applies,
+        "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"]}
+
+    # a mid-flight snapshot through the checkpoint resumes bit for bit
+    alg = get_algorithm("mtsl")
+    hp = HParams(lr=SYS_LR, component_lr=server_scaled(M))
+    topo_c = topo.with_capability(capability_profile(M, scfg, topo))
+    pairs = list(zip((stage_batch(b, dev) for b in client_batches(src, SYS_B, steps=R,
+                                                                    seed=0)),
+                     schedule_stream(scfg, M, 1)))
+    ek = dict(staleness_decay=c["staleness_decay"], max_staleness=c["max_staleness"])
+    path = ROOT / "build" / "chip_async" / "async.msgpack"
+    try:
+        with _deterministic(torch):
+            eng = EventEngine(alg, model, M, hp, topo_c, init_state=alg.init_state(
+                model, generator(dev, 0), M, hp), **ek)
+            gen = eng.run(iter(pairs), max_dispatches=R)
+            for i, _ in enumerate(gen):
+                if i == c["cut"]:
+                    break
+            in_flight = len(eng.cohorts)
+            save_algorithm_state(str(path), alg, eng.state(), cfg=cfg,
+                                 extra={"events": eng.snapshot()})
+            restored, _, extra = load_algorithm_state(str(path), cfg=cfg, device=dev)
+            snap = extra["events"]
+            resumed = EventEngine(alg, model, M, hp, topo_c, init_state=restored,
+                                  snapshot=snap, **ek)
+            for _ in resumed.run(iter(pairs[snap["dispatches"]:]), max_dispatches=R):
+                pass
+            for _ in gen:
+                pass
+            torch.cuda.synchronize()
+        same = ((resumed.applies, resumed.t, resumed.dropped)
+                == (eng.applies, eng.t, eng.dropped)
+                and _state_bits_equal(torch, resumed.state(), eng.state()))
+    finally:
+        shutil.rmtree(path.parent, ignore_errors=True)
+    if not same or not in_flight:
+        raise AssertionError(f"async: resumed at event {c['cut']} ({in_flight} cohorts "
+                             f"in flight) differs from the uninterrupted run")
+    out["resume"] = {"cut_event": c["cut"], "cohorts_in_flight": in_flight,
+                     "bit_equal": True}
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def cached_phase(torch, dev):
+    """cached (see the module docstring)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import shards
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.models.registry import build_model
+
+    c = CACHED_RUN
+    R, n = c["rounds"], c["examples"]
+    cfg = get_config(SYS_ARCH)
+    M = cfg.num_clients
+    model = build_model(cfg)
+    src = _image_source(cfg, M)
+    root = ROOT / c["dir"]
+    shutil.rmtree(root, ignore_errors=True)
+    built = {}
+
+    def timed(name):
+        real = getattr(shards, name)
+
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                built[name] = time.perf_counter() - t0
+
+        return real, fn
+
+    out = {"arch": SYS_ARCH, "rounds": R, "examples_per_client": n, "caches": {}}
+    try:
+        for kind, extra in (("per_client", []),
+                            ("dirichlet", ["--dirichlet-alpha", str(c["alpha"])])):
+            d = root / kind
+            argv = _sys_argv(R, "--data", "cached", "--cache-dir", str(d),
+                             "--cache-examples", str(n), *extra)
+            name = "build_dirichlet_cache" if extra else "build_cache"
+            real, fn = timed(name)
+            setattr(shards, name, fn)
+            _reset_counts(torch)
+            try:
+                with _deterministic(torch):
+                    s_cache, h_cache, log = _launch(argv)
+            finally:
+                setattr(shards, name, real)
+            _check_k1(_read_counts(torch), R, f"cached {kind}")
+            if "built client cache" not in log or name not in built:
+                raise AssertionError(f"cached {kind}: the launcher did not build the "
+                                     "cache on first use")
+            if extra:
+                corpus = shards.pooled_corpus(src, M * n, seed=0)
+                mem = shards.materialize_dirichlet(corpus, M, c["alpha"], seed=0)
+            else:
+                mem = shards.materialize_source(src, n, seed=0)
+            with _deterministic(torch):
+                s_mem, h_mem = _as_launcher(torch, model, M,
+                                            client_batches(mem, SYS_B, steps=R, seed=0),
+                                            R, 2)
+                torch.cuda.synchronize()
+            if ([e["loss"] for e in h_cache] != [e["loss"] for e in h_mem]
+                    or not _state_bits_equal(torch, s_cache, s_mem)):
+                raise AssertionError(f"cached {kind}: training from the cache differs "
+                                     "from the same rows in memory")
+            ds = shards.load_cache(str(d))
+            t0 = time.perf_counter()
+            for _ in client_batches(ds, SYS_B, steps=R, seed=0):
+                pass
+            read_ms = (time.perf_counter() - t0) * 1e3 / R
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _as_launcher(torch, model, M, client_batches(ds, SYS_B, steps=R, seed=0), R, 2)
+            torch.cuda.synchronize()
+            out["caches"][kind] = {
+                "build_s": built[name], "bytes": _dir_bytes(d),
+                "examples": sum(ds.num_examples(m) for m in range(M)),
+                "bit_equal_to_in_memory": True, "host_read_ms_per_round": read_ms,
+                "rounds_per_s": R / (time.perf_counter() - t0)}
+        t0 = time.perf_counter()
+        for _ in client_batches(src, SYS_B, steps=R, seed=0):
+            pass
+        synth_ms = (time.perf_counter() - t0) * 1e3 / R
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _as_launcher(torch, model, M, client_batches(src, SYS_B, steps=R, seed=0), R, 2)
+        torch.cuda.synchronize()
+        out["synthesis"] = {"host_ms_per_round": synth_ms,
+                            "rounds_per_s": R / (time.perf_counter() - t0)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["removed"] = not root.exists()
+    return out
+
+
+def chunk_phase(torch, dev):
+    """chunk (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.core.scan_round import build_mtsl_scan_round
+    from repro_torch.core.schedule import full_schedule
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_multi_
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import stage_batch
+    from repro_torch.utils.device import generator
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    c = CHUNK_RUN
+    M, chunk, R = c["M"], c["chunk"], c["rounds"]
+    base = ["--num-clients", str(M)]
+    out = {"arch": SYS_ARCH, "M": M, "chunk": chunk, "b": SYS_B}
+
+    def gap(a, b):
+        la, lb = (dict(tree_leaves_with_path(s.params)) for s in (a, b))
+        return max(float((la[k].detach() - lb[k].detach()).abs().max()) for k in la)
+
+    # dense against chunked, R rounds at lr 0.01 (the CPU tests' tolerance)
+    runs = {}
+    for flags in ([], ["--client-chunk", str(chunk)]):
+        argv = _sys_argv(R, *base, *flags, "--prefetch", "0")
+        argv[argv.index("--lr") + 1] = str(c["lr"])
+        _reset_counts(torch)
+        with _deterministic(torch):
+            state, hist, _ = _launch(argv)
+            torch.cuda.synchronize()
+        _check_k1(_read_counts(torch), R, f"chunk {flags}")
+        runs[bool(flags)] = (state, [e["loss"] for e in hist])
+    (s_d, l_d), (s_c, l_c) = runs[False], runs[True]
+    scale = max(1.0, max(abs(x) for x in l_d))
+    loss_gap, param_gap = max(abs(a - b) for a, b in zip(l_d, l_c)), gap(s_d, s_c)
+    if loss_gap > CHUNK_LOSS_TOL * scale or param_gap > CHUNK_LOSS_TOL:
+        raise AssertionError(f"chunk: chunked vs dense loss gap {loss_gap} (scale "
+                             f"{scale}), parameter gap {param_gap}")
+    out["vs_dense"] = {"rounds": R, "lr": c["lr"], "loss_gap": loss_gap,
+                       "loss_scale": scale, "param_gap": param_gap}
+    del runs, s_d, s_c
+
+    # peak memory and s per round, as a user runs them
+    T = c["timed_rounds"]
+    for flags, key in (([], "dense"), (["--client-chunk", str(chunk)], "chunked")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the run's own peak: what earlier phases still hold is not its
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, hist, _ = _launch(_sys_argv(T, *base, *flags))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[key] = {"rounds": T, "run_s": wall,
+                    "s_per_round": (hist[-1]["time"] - hist[0]["time"]) / (T - 1),
+                    "peak_mem_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+                    "held_before_gib": held / 2**30}
+
+    # the host scan round at two M, on the same per-block functions
+    cfg = get_config(SYS_ARCH).with_updates(num_clients=max(c["scan_M"]))
+    model = build_model(cfg)
+    alg = get_algorithm("mtsl")
+    out["scan"], kernels = {}, []
+    for m in c["scan_M"]:
+        hp = HParams(lr=c["lr"], component_lr=server_scaled(m))
+        src = _image_source(cfg, m, num_tasks=m)
+        batches = [stage_batch(b, dev) for b in client_batches(src, SYS_B, steps=R,
+                                                                seed=0)]
+        dense, scan = alg.round_fn(model, m, hp), build_mtsl_scan_round(model, m, hp,
+                                                                          chunk=chunk)
+        s_d = alg.init_state(model, generator(dev, 0), m, hp)
+        s_s = alg.init_state(model, generator(dev, 0), m, hp)
+        sched = full_schedule(m, 1)
+        losses, launches = [], []
+        with _deterministic(torch):
+            for b in batches:
+                s_d, m_d = dense(s_d, b, sched)
+                n0 = mtsl_update_multi_.launches
+                s_s, m_s = scan(s_s, b, sched)
+                launches.append(mtsl_update_multi_.launches - n0)
+                losses.append((float(m_d["loss"]), float(m_s["loss"])))
+        scale = max(1.0, max(abs(a) for a, _ in losses))
+        lgap = max(abs(a - b) for a, b in losses)
+        if lgap > CHUNK_LOSS_TOL * scale or set(launches) != {m // chunk + 1}:
+            raise AssertionError(f"chunk scan M={m}: losses {losses}, K1 launches a "
+                                 f"round {launches}, want {m // chunk + 1}")
+        kernels.append(scan.kernels)
+        out["scan"][m] = {"loss_gap": lgap, "loss_scale": scale,
+                          "k1_launches_per_round": launches[0],
+                          "param_gap": gap(s_d, s_s)}
+    if any(k is not kernels[0] for k in kernels):
+        raise AssertionError(f"chunk scan: M {c['scan_M']} built their own functions")
+    return out
+
+
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
           "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
-          "swa-serve", "xparity", "graphs", "ckpt")
+          "swa-serve", "xparity", "graphs", "ckpt", "pipeline", "async", "cached",
+          "chunk")
 
 
 def _phases_wanted(argv):
@@ -3773,6 +4398,28 @@ def main() -> int:
             print("CKPT " + json.dumps(report["ckpt"]), flush=True)
             print(f"[ckpt] {report['ckpt']['phase_s']:.1f} s", flush=True)
             torch.cuda.empty_cache()
+
+        # the training loop's systems layers run last: in a whole run where
+        # they ran before the graphs phase, its profiler windows lost kernel
+        # records (PERF.md §7)
+        for key, fn, what in (
+                ("pipeline", pipeline_phase, f"{SYS_ARCH} and {SYS_LM['arch']}, "
+                 "--prefetch 0 vs 2: bit-equal; rounds/s and busy share"),
+                ("async", async_phase, f"{SYS_ARCH} --async: star == sync; "
+                 "multi-server with stragglers; snapshot resume"),
+                ("cached", cached_phase, f"{SYS_ARCH} --data cached (per-client, "
+                 "Dirichlet) built on first use == in memory"),
+                ("chunk", chunk_phase, f"{SYS_ARCH} M={CHUNK_RUN['M']}, dense vs "
+                 f"--client-chunk {CHUNK_RUN['chunk']}; the scan round at M "
+                 f"{CHUNK_RUN['scan_M']}")):
+            if want(key):
+                print(f"[{key}] {what}", flush=True)
+                t1 = time.perf_counter()
+                report[key] = fn(torch, dev)
+                report[key]["phase_s"] = time.perf_counter() - t1
+                print(f"{key.upper()} " + json.dumps(report[key]), flush=True)
+                print(f"[{key}] {report[key]['phase_s']:.1f} s", flush=True)
+                torch.cuda.empty_cache()
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         return _fail("a phase failed")
@@ -3793,6 +4440,15 @@ def main() -> int:
     # the serving phases' launches beside the training path's (K4's ring and
     # cross decodes, K2's cross and non-causal prefill attention, apart)
     k3["serve_launches"] = {key: report[key]["counts"]["k3"] for key in SERVE_RUNS}
+    # the systems layers' paths: K1 once a round (pipelined, cached), once
+    # an apply (async), once a round dense or chunked, M/chunk + 1 times a
+    # scan round; K3 on the pipelined LM run, counted on the card
+    k1["systems_launches"] = {
+        "pipeline_prefetch2": report["pipeline"]["depths"][2]["k1_launches"],
+        "async_multi_server": report["async"]["multi_server"]["k1_launches"],
+        "scan_round_per_round": {m: r["k1_launches_per_round"]
+                                 for m, r in report["chunk"]["scan"].items()}}
+    k3["systems_launches"] = {"pipeline_lm": report["pipeline"]["lm"]["k3_launches"]}
     k4["serve_launches"] = {key: report[key]["counts"]["k4"]
                             for key in ("ssm-serve", "hybrid-serve")}
     zoo_serve = {"moe-serve": report["moe-serve"]["counts"],

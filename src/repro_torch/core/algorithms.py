@@ -33,7 +33,11 @@ The reference jits the round and donates the state's buffers
 updates the state's parameters in place; the baselines step copies of
 them in place (through K1) and return the new state.
 
-Mesh sharding and client chunking are not ported yet.
+`phase_program` builds an algorithm's declared phases (the event engine,
+train/events.py, drives them). `shard_round_fn(..., client_chunk=c)` is
+the client-chunk half of the reference's: the round runs under
+`core.client_axis.client_axis(chunk=c)`, so every per-client map in it
+goes over M/c blocks. Mesh sharding is not ported (`mesh=` raises).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import comm_cost, federation, lr_policy, topology
+from repro_torch.core.client_axis import client_axis
 from repro_torch.core.mtsl import (
     TrainState,
     build_eval_step,
@@ -139,6 +144,46 @@ def split_local_steps(batch: PyTree, local_steps: int) -> PyTree:
     (views)."""
     return {k: x.reshape((x.shape[0], local_steps, -1) + tuple(x.shape[2:]))
             for k, x in batch.items()}
+
+
+def phase_program(alg: "Algorithm", model, num_clients: int,
+                  hp: HParams) -> PhaseProgram:
+    """`alg`'s declared phase program (the local -> apply decomposition of
+    its round). Raises for an algorithm without one: event-driven (async)
+    execution needs the phase contract."""
+    if alg.phases is None:
+        raise ValueError(
+            f"algorithm {alg.name!r} declares no phase program; "
+            "event-driven (async) execution needs one — register the "
+            "algorithm with phases=... (see core/phases.py)")
+    return alg.phases(model, num_clients, hp)
+
+
+def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
+                   *, mesh=None, client_chunk: Optional[int] = None):
+    """`alg.round_fn` with the client axis treated as an execution
+    resource. client_chunk=None is exactly `alg.round_fn`. With
+    `client_chunk=c` every call runs under `client_axis(chunk=c)`: the
+    per-client work goes over M/c blocks of c clients, each block's
+    backward before the next block's forward (core/client_axis.py). M must
+    divide by c. `mesh` (sharding the client axis over devices) is not
+    ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh sharding of the client axis is not ported yet")
+    fn = alg.round_fn(model, num_clients, hp)
+    if client_chunk is None:
+        return fn
+    if num_clients % client_chunk:
+        raise ValueError(
+            f"num_clients {num_clients} not divisible by client_chunk "
+            f"{client_chunk}")
+
+    def chunked(state, batch, schedule=None):
+        with client_axis(chunk=client_chunk):
+            return fn(state, batch, schedule)
+
+    return chunked
 
 
 def _with_round_batch(prog: PhaseProgram, local_steps: int) -> PhaseProgram:

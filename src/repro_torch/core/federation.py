@@ -53,6 +53,13 @@ How the port maps the reference's transforms:
     responsibilities stay plain tensor code.
   * each round works on copies of the state's parameters (the local phase
     returns them), so a phase never changes the state it was given.
+  * client chunking (core/client_axis.py): `_client_value_and_grad` is the
+    seam the reference's `_vmap_with_smask` is. Under `client_axis(chunk=
+    c)` it runs the copies in blocks of c clients, each block's forward
+    and backward before the next, so one block's activations are live at
+    a time (the copies' parameters are disjoint, so every block's
+    gradients are its own). The evals map through `client_map`; splitfed's
+    local step goes through mtsl's chunked loss.
 """
 from __future__ import annotations
 
@@ -61,7 +68,14 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.mtsl import _at_least_f32, _ce_logits, _lm_loss, make_loss_fn
+from repro_torch.core.client_axis import client_blocks, client_map, current_chunk
+from repro_torch.core.mtsl import (
+    _at_least_f32,
+    _ce_logits,
+    _chunked_grads,
+    _lm_loss,
+    make_loss_fn,
+)
 from repro_torch.core.phases import PhaseProgram, compose_phases
 from repro_torch.core.schedule import (
     ClientSchedule,
@@ -144,17 +158,20 @@ def full_model_loss(model: Model) -> Callable:
 
 
 def _client_value_and_grad(model: Model) -> Callable:
-    """vg(params, batch, smask=None, objective=None) -> (losses [N],
-    grads): `full_model_loss` over the leading axis N of `params` (each
-    leaf [N, ...]), `batch` ([N, b, ...]) and `smask` ([N, b]); grads of
-    `objective(losses)` (default: their sum, i.e. each copy's own
+    """vg(params, batch, smask=None, objective=None, group=1) -> (losses
+    [N], grads): `full_model_loss` over the leading axis N of `params`
+    (each leaf [N, ...]), `batch` ([N, b, ...]) and `smask` ([N, b]);
+    grads of `objective(losses)` (default: their sum, i.e. each copy's own
     gradient) with `params`' structure. The classifiers map with vmap, the
-    LMs loop over unbind views (see the module docstring)."""
+    LMs loop over unbind views (see the module docstring). Under a client
+    chunk the copies run in blocks of chunk·group rows (`group`: rows per
+    client, K for FedEM), each block's backward before the next block's
+    forward; `objective` is then applied to each block's losses, so it
+    must be separable over whole clients."""
     loss_fn = full_model_loss(model)
     classifier = _is_classifier(model)
 
-    def vg(params, batch, smask=None, objective=None):
-        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    def block(params, leaves, batch, smask, objective):
         p = tree_unflatten_like(params, leaves)
         if classifier:
             if smask is None:
@@ -169,8 +186,21 @@ def _client_value_and_grad(model: Model) -> Callable:
                         None if smask is None else smask[n])
                 for n, v in enumerate(views)])
         total = losses.sum() if objective is None else objective(losses)
-        grads = torch.autograd.grad(total, leaves)
-        return losses.detach(), tree_unflatten_like(params, grads)
+        return losses.detach(), torch.autograd.grad(total, leaves)
+
+    def vg(params, batch, smask=None, objective=None, group=1):
+        full = tree_leaves(params)
+        losses, grads = [], []
+        for sl in client_blocks(full[0].shape[0], group=group):
+            leaves = [x[sl].detach().requires_grad_() for x in full]
+            l, g = block(params, leaves, {k: x[sl] for k, x in batch.items()},
+                         None if smask is None else smask[sl], objective)
+            losses.append(l)
+            grads.append(g)
+        if len(grads) == 1:
+            return losses[0], tree_unflatten_like(params, grads[0])
+        return torch.cat(losses), tree_unflatten_like(
+            params, [torch.cat(g) for g in zip(*grads)])
 
     return vg
 
@@ -289,12 +319,13 @@ def _client_accuracy(model: Model):
 
 def eval_fedavg(model: Model, num_clients: int):
     """Eval per task with client m's copy of the (shared) model."""
-    acc = torch.func.vmap(_client_accuracy(model))
+    acc = _client_accuracy(model)
 
     @torch.no_grad()
     def eval_fn(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "label"}
-        accs = acc(params["towers"], params["servers"], inputs, batch["label"])
+        accs = client_map(acc, params["towers"], params["servers"], inputs,
+                          batch["label"])
         return {"per_task_acc": accs, "acc_mtl": accs.mean()}
 
     return eval_fn
@@ -334,11 +365,18 @@ def build_splitfed_phases(model: Model, lr: float, num_clients: int,
         ps = tree_leaves(p)
         eta = torch.full((1,), lr, dtype=torch.float32, device=dev)
         per = []
+        chunk = current_chunk()
         for t in range(local_steps):
-            req = [x.detach().requires_grad_() for x in ps]
-            loss, metrics = loss_fn(tree_unflatten_like(p, req),
-                                    _step_batch(batch, t), act[t], smask)
-            _sgd_step(ps, torch.autograd.grad(loss, req), [eta] * len(ps))
+            if chunk is not None and chunk < num_clients:
+                metrics, grads = _chunked_grads(model, num_clients, chunk, p,
+                                                _step_batch(batch, t), act[t], smask)
+                gs = [g for k in p for g in tree_leaves(grads[k])]
+            else:
+                req = [x.detach().requires_grad_() for x in ps]
+                loss, metrics = loss_fn(tree_unflatten_like(p, req),
+                                        _step_batch(batch, t), act[t], smask)
+                gs = torch.autograd.grad(loss, req)
+            _sgd_step(ps, gs, [eta] * len(ps))
             per.append(metrics["per_task"].detach())
         return {"params": p, "per": torch.stack(per)}
 
@@ -483,14 +521,14 @@ def build_parallelsfl_phases(model: Model, lr: float, num_clients: int,
 def eval_parallelsfl(model: Model, num_clients: int):
     """Eval {"towers": [M, ...], "servers": [C, ...], "cidx": [M]}: client
     m is served by its cluster's replica, by the map stored in the state."""
-    acc = torch.func.vmap(_client_accuracy(model))
+    acc = _client_accuracy(model)
 
     @torch.no_grad()
     def eval_fn(params, batch):
         cidx = params["cidx"]
         servers_pc = tree_map(lambda s: s[cidx], params["servers"])
         inputs = {k: v for k, v in batch.items() if k != "label"}
-        accs = acc(params["towers"], servers_pc, inputs, batch["label"])
+        accs = client_map(acc, params["towers"], servers_pc, inputs, batch["label"])
         return {"per_task_acc": accs, "acc_mtl": accs.mean()}
 
     return eval_fn
@@ -637,17 +675,22 @@ def build_fedem_phases(model: Model, lr: float, num_clients: int,
         ps = tree_leaves(comps)
         log_pi = torch.log(pi + 1e-12)
         sm = None if smask is None else per_component(smask)
-        rs = []
+        rs, step_r = [], []
 
         def objective(losses):
-            lk = losses.reshape(M, K)
-            r = torch.softmax(log_pi - lk.detach(), dim=-1)  # no gradient
-            rs.append(r)
+            # one block of whole clients (all of them without a chunk)
+            lk = losses.reshape(-1, K)
+            lo = sum(r.shape[0] for r in step_r)
+            r = torch.softmax(log_pi[lo:lo + lk.shape[0]] - lk.detach(),
+                              dim=-1)  # no gradient
+            step_r.append(r)
             return (r * lk).sum()
 
         for t in range(local_steps):
             mb = {k: per_component(v) for k, v in _step_batch(batch, t).items()}
-            _, grads = vg(tree_map(fold, comps), mb, sm, objective)
+            _, grads = vg(tree_map(fold, comps), mb, sm, objective, group=K)
+            rs.append(torch.cat(step_r))
+            step_r.clear()
             _sgd_step(ps, tree_leaves(grads), [eta[t]] * len(ps))
         # mean responsibility over the steps each client actually ran
         r_mean = ((torch.stack(rs) * active[:, :, None]).sum(0)

@@ -24,8 +24,13 @@ Parameters live in a `TrainState` whose leaves require grad; the apply
 step updates them in place (the reference donates their buffers instead),
 so a round returns the state it was given, advanced.
 
-The reference's `client_axis` chunking (a scan over client blocks) is
-not ported yet.
+Client chunking (core/client_axis.py): under `client_axis(chunk=c)` the
+local step runs the clients in M/c blocks, each block's forward AND
+backward before the next (`_chunked_grads`, the counterpart of the
+reference's `_chunked_loss` / `_chunk_terms`), so only one block's
+activations are live; the server's gradient is the sum of the blocks'
+and the aux loss the sum of their aux terms, as in the reference's
+chunked loss. The eval runs block by block too (`_chunk_eval`).
 """
 from __future__ import annotations
 
@@ -33,11 +38,17 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import client_axis
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.split import client_view, is_client_path, stack_towers
 from repro_torch.models.registry import Model
 from repro_torch.optim.per_component import ComponentLR, per_component_lr
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (
+    tree_align,
+    tree_leaves,
+    tree_map,
+    tree_unflatten_like as tree_unflatten,
+)
 
 PyTree = Any
 
@@ -196,6 +207,99 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
     return loss_fn
 
 
+def _chunk_terms_fn(model: Model, c: int) -> Callable:
+    """terms(params_c, batch_c, part_c, sm_c, sd_c) -> (per [c], the
+    block's accuracy numerator, aux): one block of c clients' forward, the
+    dense loss body with M -> c (the reference's `_chunk_terms`)."""
+    is_classifier = _is_classifier(model.cfg)
+    towers_fwd = _towers_fn(model, c)
+
+    def terms(params, batch, part=None, sm=None, sd=None):
+        inputs = {k: v for k, v in batch.items() if k != "label"}
+        smashed = towers_fwd(params["towers"], inputs)
+        if part is not None:
+            smashed = tree_map(
+                lambda s: torch.where(
+                    (part > 0).reshape((c,) + (1,) * (s.ndim - 1)),
+                    s, s.detach()) if s.is_floating_point() else s,
+                smashed)
+        flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
+        logits, aux = model.server_forward(params["server"], flat)
+        logits32 = _at_least_f32(logits)
+        if not is_classifier:
+            per_logits = logits32.reshape((c, -1) + tuple(logits.shape[1:]))
+            tokens = batch["tokens"]
+            if sm is None:
+                per = _lm_loss(per_logits, tokens)
+            elif sd is None:
+                per = _lm_loss(per_logits, tokens, sm)
+            else:
+                per = _lm_loss(per_logits, tokens, sm,
+                               torch.clamp(sd * (tokens.shape[-1] - 1), min=1e-9))
+            return per, torch.zeros((), dtype=torch.float32, device=per.device), aux
+        labels = batch["label"]
+        per_logits = logits32.reshape(c, -1, logits.shape[-1])
+        if sm is None:
+            per = _ce_logits(per_logits, labels)
+        elif sd is None:
+            per = _ce_logits(per_logits, labels, sm)
+        else:
+            per = _ce_logits(per_logits, labels, sm, torch.clamp(sd, min=1e-9))
+        correct = (logits32.argmax(-1) == labels.reshape(-1).long()).float()
+        w = torch.ones_like(correct) if sm is None else sm.reshape(-1)
+        return per, (correct * w).sum(), aux
+
+    return terms
+
+
+def _chunked_grads(model: Model, num_clients: int, c: int, params, batch,
+                   participation=None, smask=None, sdenom=None):
+    """(metrics, grads) of the round's loss with the clients in blocks of
+    c: each block's forward and backward run before the next block's, its
+    tower gradients are its own and the server's gradient accumulates over
+    the blocks (see the module docstring)."""
+    M = num_clients
+    terms = _chunk_terms_fn(model, c)
+    t_leaves = tree_leaves(params["towers"])
+    s_req = [x.detach().requires_grad_() for x in tree_leaves(params["server"])]
+    server = tree_unflatten(params["server"], s_req)
+    sg, tgs, pers = None, [], []
+    acc_num = aux_sum = None
+    for sl in client_axis.client_blocks(M, c):
+        t_req = [x[sl].detach().requires_grad_() for x in t_leaves]
+        p = {"towers": tree_unflatten(params["towers"], t_req), "server": server}
+        part = None if participation is None else participation[sl]
+        per, num, aux = terms(p, {k: v[sl] for k, v in batch.items()}, part,
+                              None if smask is None else smask[sl],
+                              None if sdenom is None else sdenom[sl])
+        wper = per if part is None else per * part
+        g = torch.autograd.grad(wper.sum() + aux, t_req + s_req)
+        tgs.append(g[:len(t_req)])
+        gs = g[len(t_req):]
+        sg = list(gs) if sg is None else [a + b for a, b in zip(sg, gs)]
+        pers.append(per.detach())
+        aux = aux.detach() if torch.is_tensor(aux) else aux
+        acc_num = num.detach() if acc_num is None else acc_num + num.detach()
+        aux_sum = aux if aux_sum is None else aux_sum + aux
+    per = torch.cat(pers)
+    wper = per if participation is None else per * participation
+    loss = wper.sum() + aux_sum
+    grads = {"towers": tree_unflatten(params["towers"],
+                                      [torch.cat(x) for x in zip(*tgs)]),
+             "server": tree_unflatten(params["server"], sg)}
+    metrics = {"loss": loss, "per_task": per, "aux": aux_sum}
+    if _is_classifier(model.cfg):
+        width = tree_leaves(batch)[0].shape[1]
+        if smask is None:
+            den = torch.tensor(float(M * width), device=per.device)
+        elif sdenom is None:
+            den = torch.clamp(smask.sum(), min=1.0)
+        else:
+            den = torch.clamp(sdenom.sum(), min=1e-9)
+        metrics["acc"] = acc_num / den
+    return metrics, grads
+
+
 # ---------------------------------------------------------------------------
 # state init
 # ---------------------------------------------------------------------------
@@ -255,6 +359,10 @@ def build_train_phases(
     opt = per_component_lr(base_optimizer, is_client_path)
 
     def _grads(params, batch, participation=None, smask=None, sdenom=None):
+        chunk = client_axis.current_chunk()
+        if chunk is not None and chunk < num_clients:
+            return _chunked_grads(model, num_clients, chunk, params, batch,
+                                  participation, smask, sdenom)
         loss, metrics = loss_fn(params, batch, participation, smask, sdenom)
         leaves = tree_leaves(params)
         flat = torch.autograd.grad(loss, leaves)
@@ -297,8 +405,9 @@ def build_train_phases(
     def apply_step(state: TrainState, grads, metrics,
                    component_lr: Optional[ComponentLR] = None,
                    participation=None):
-        opt_state = opt.apply_(state.params, grads, state.opt_state,
-                               state.step, component_lr, participation)
+        opt_state = opt.apply_(state.params, tree_align(grads, state.params),
+                               state.opt_state, state.step, component_lr,
+                               participation)
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return local_step, apply_step
@@ -313,8 +422,22 @@ def build_eval_step(model: Model, num_clients: int) -> Callable:
     is_classifier = _is_classifier(model.cfg)
     towers_fwd = _towers_fn(model, M)
 
+    def _chunk_eval(params, batch, c):
+        """The eval block by block (the reference's `_chunk_eval`)."""
+        terms = _chunk_eval_fn(model, c)
+        per = torch.cat([terms(tree_map(lambda x: x[sl], params["towers"]),
+                               params["server"],
+                               {k: v[sl] for k, v in batch.items()})
+                         for sl in client_axis.client_blocks(M, c)])
+        if is_classifier:
+            return {"per_task_acc": per, "acc_mtl": per.mean()}
+        return {"per_task_loss": per, "loss": per.sum()}
+
     @torch.no_grad()
     def eval_step(params, batch):
+        chunk = client_axis.current_chunk()
+        if chunk is not None and chunk < M and M % chunk == 0:
+            return _chunk_eval(params, batch, chunk)
         inputs = {k: v for k, v in batch.items() if k != "label"}
         smashed = towers_fwd(params["towers"], inputs)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
@@ -328,3 +451,23 @@ def build_eval_step(model: Model, num_clients: int) -> Callable:
         return {"per_task_acc": per_task_acc, "acc_mtl": per_task_acc.mean()}
 
     return eval_step
+
+
+def _chunk_eval_fn(model: Model, c: int) -> Callable:
+    """per(towers_c, server, batch_c) -> [c]: one block's per-task accuracy
+    (classifiers) or next-token loss (LMs)."""
+    is_classifier = _is_classifier(model.cfg)
+    towers_fwd = _towers_fn(model, c)
+
+    def per(towers, server, batch):
+        inputs = {k: v for k, v in batch.items() if k != "label"}
+        smashed = towers_fwd(towers, inputs)
+        flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
+        logits, _ = model.server_forward(server, flat)
+        if not is_classifier:
+            return _lm_loss(_at_least_f32(logits).reshape((c, -1) + tuple(logits.shape[1:])),
+                            batch["tokens"])
+        preds = logits.float().argmax(-1).reshape(c, -1)
+        return (preds == batch["label"].long()).float().mean(1)
+
+    return per

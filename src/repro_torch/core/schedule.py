@@ -40,11 +40,17 @@ class ClientSchedule(NamedTuple):
     sizes:  optional [M] int32 per-step sample counts (capability-aware
             batch sizing): client m uses the first sizes[m] samples of its
             padded batch row. Masked clients carry 0, participants >= 1.
+    staleness: optional [M] int32 apply-time staleness: how many server
+            applies landed between a cohort's dispatch and the arrival
+            being applied (the event engine, train/events.py, sets it on
+            the apply-time schedule; `staleness_weights` turns it into
+            FedAsync mixing weights). None on the synchronous path.
     """
 
     mask: np.ndarray
     budget: np.ndarray
     sizes: Optional[np.ndarray] = None
+    staleness: Optional[np.ndarray] = None
 
     @property
     def num_participants(self) -> int:

@@ -15,7 +15,7 @@ The chains are dense f64 [V, V] matrices: 134 MB each at V = 4096, 8.2 GB
 at V = 32,000. The same seed gives the reference's chains and draws byte
 for byte. Unlike the reference, each chain's row-wise CDF is computed once
 and kept (the reference recomputes `np.cumsum(P)` on every draw; the values
-are the same). The reference's `vectorized` draw is not ported.
+are the same).
 """
 from __future__ import annotations
 
@@ -69,11 +69,31 @@ class MultiTaskLMSource:
         return out
 
     def all_clients_batch(self, rng: np.random.Generator,
-                          batch_per_client: int, seq: int):
-        """[M, b, S] token batch, drawn client by client (the reference's
-        default draw order)."""
-        return np.stack([self.client_tokens(rng, m, batch_per_client, seq)
-                         for m in range(self.num_clients)])
+                          batch_per_client: int, seq: int,
+                          vectorized: bool = False):
+        """[M, b, S] token batch.
+
+        vectorized=False draws client by client (the reference's default
+        draw order). vectorized=True advances ALL clients' chains with one
+        batched inverse-CDF draw per position (the reference's vectorized
+        draw, byte for byte): host cost per client flat in M. Same
+        distribution, different seeded stream."""
+        if not vectorized:
+            return np.stack([self.client_tokens(rng, m, batch_per_client, seq)
+                             for m in range(self.num_clients)])
+        M, V, b = self.num_clients, self.vocab_size, batch_per_client
+        cums = np.stack([self._cum(m) for m in range(M)])  # [M, V, V]
+        out = np.empty((M, b, seq), np.int64)
+        state = rng.integers(0, V, size=(M, b))
+        out[..., 0] = state
+        midx = np.arange(M)[:, None]
+        for t in range(1, seq):
+            u = rng.random((M, b))
+            # the same overflow clamp as the per-client path
+            state = np.minimum(
+                (cums[midx, state] < u[..., None]).sum(axis=-1), V - 1)
+            out[..., t] = state
+        return out
 
     def entropy_floor(self, client: int) -> float:
         """Stationary conditional entropy of client's chain (nats/token)."""

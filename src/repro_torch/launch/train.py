@@ -41,11 +41,30 @@ and convolutions run in full f32 (TF32 off), as the reference computes
 them. The VLM and encoder-decoder archs are refused: their batches carry
 vision features or audio frames beside the tokens, which the LM source
 does not draw (the reference launcher cannot train them either; the
-registry's round takes such batches). Not ported yet: `--mesh`,
-`--client-chunk`, `--async` and `--sync-every` (the event engine and its
-multi-server replica sync), `--data cached`, `--vectorized-data` and the
-prefetch pipeline (`--prefetch`; the loop is synchronous, which the
-reference guarantees gives the same trajectory).
+registry's round takes such batches).
+
+The training loop's systems layers, with the reference's flags, defaults
+and refusals:
+
+  * `--prefetch N` (default 2): the async round pipeline
+    (train/pipeline.py): schedules and batches drawn N rounds ahead on a
+    background thread, copied to the card on a side stream, metrics read
+    lazily. 0 = synchronous; the trajectory is the same at any depth.
+  * `--async` (train/events.py): the staleness-aware event engine instead
+    of the round barrier, with `--staleness-decay`, `--max-staleness` and,
+    on `--topology multi-server`, replica syncs every `--sync-every`
+    rounds. `--sim-ms-per-sample` sets the simulated client compute.
+  * `--data cached --cache-dir D` (data/shards.py): deterministic mmap'd
+    shard reads from an on-disk client cache, built on first use
+    (`--cache-examples` per client; `--dirichlet-alpha A` builds it as a
+    Dirichlet(A) partition of a pooled corpus). Caches are byte-identical
+    to the reference's, so either package reads the other's.
+    `--vectorized-data` draws synthetic rounds with one batched RNG pass.
+  * `--client-chunk C` (core/client_axis.py): every round over blocks of C
+    clients, each block's backward before the next; C must divide M and
+    `--async` refuses it.
+
+Not ported yet: `--mesh` (refused).
 
 `--checkpoint PATH` saves the algorithm's state every 100 rounds and after
 the last one, in the reference's file format (train/checkpoint.py): the
@@ -61,9 +80,15 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import lr_policy
-from repro_torch.core.algorithms import HParams, get_algorithm, list_algorithms
+from repro_torch.core.algorithms import (
+    HParams,
+    get_algorithm,
+    list_algorithms,
+    num_rounds,
+)
 from repro_torch.core.schedule import ScheduleConfig, padded_batch_per_client
 from repro_torch.core.topology import TOPOLOGIES, build_topology, mbps
+from repro_torch.data import shards
 from repro_torch.data.lm import MultiTaskLMSource
 from repro_torch.data.pipeline import client_batches
 from repro_torch.data.synthetic import MultiTaskImageSource
@@ -110,6 +135,43 @@ def parse_hp_overrides(items) -> dict:
     return out
 
 
+def _cached_dataset(args, src, M, is_classifier):
+    """Open (or build once) the on-disk client cache for --data cached."""
+    if not args.cache_dir:
+        raise SystemExit("--data cached requires --cache-dir")
+    seq = None if is_classifier else args.seq_len
+    try:
+        ds = shards.load_cache(args.cache_dir)
+    except FileNotFoundError:
+        if args.dirichlet_alpha is not None:
+            # the standard non-IID protocol: pool an IID corpus, then
+            # Dirichlet(alpha)-partition it across the M clients
+            corpus = shards.pooled_corpus(src, M * args.cache_examples,
+                                          seed=args.seed, seq_len=seq)
+            shards.build_dirichlet_cache(args.cache_dir, corpus, M,
+                                         args.dirichlet_alpha, seed=args.seed)
+        else:
+            shards.build_cache(args.cache_dir, src, args.cache_examples,
+                               seq_len=seq, seed=args.seed)
+        print(f"built client cache at {args.cache_dir}")
+        ds = shards.load_cache(args.cache_dir)
+    if ds.num_clients_total != M:
+        raise SystemExit(
+            f"cache at {args.cache_dir!r} holds {ds.num_clients_total} "
+            f"clients but the run needs {M} (rebuild with "
+            f"tools/cache_dataset.py or point --cache-dir elsewhere)")
+    want_kind = "image" if is_classifier else "lm"
+    if ds.kind != want_kind:
+        raise SystemExit(
+            f"cache at {args.cache_dir!r} is kind {ds.kind!r} but --arch "
+            f"needs {want_kind!r}")
+    if seq is not None and ds.seq_len is not None and seq > ds.seq_len:
+        raise SystemExit(
+            f"--seq-len {seq} exceeds the cached sequence length "
+            f"{ds.seq_len} at {args.cache_dir!r}")
+    return ds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-mlp")
@@ -143,6 +205,25 @@ def main(argv=None):
                     help="server<->server/core bandwidth (default: infinite)")
     ap.add_argument("--link-latency-ms", type=float, default=0.0,
                     help="one-way latency applied to every declared link")
+    ap.add_argument("--sync-every", type=int, default=1,
+                    help="multi-server replica sync period, in rounds")
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="event-driven asynchronous execution "
+                         "(train/events.py): replace the synchronous round "
+                         "barrier with the staleness-aware event-queue "
+                         "engine — fast clients keep cycling while "
+                         "stragglers' updates arrive late and merge "
+                         "down-weighted by staleness")
+    ap.add_argument("--staleness-decay", type=float, default=1.0,
+                    help="async staleness decay: an update dispatched s "
+                         "server applies ago merges with weight decay**s "
+                         "(1.0 = no down-weighting)")
+    ap.add_argument("--max-staleness", type=int, default=None,
+                    help="async: drop updates staler than this many server "
+                         "applies (default: keep all)")
+    ap.add_argument("--sim-ms-per-sample", type=float, default=1.0,
+                    help="simulated client compute per sample at capability "
+                         "1.0 (the walltime model's compute unit)")
     ap.add_argument("--participation-rate", type=float, default=1.0,
                     help="per-round client participation probability "
                          "(1.0 = classic full synchronous rounds)")
@@ -151,6 +232,13 @@ def main(argv=None):
     ap.add_argument("--schedule-seed", type=int, default=None,
                     help="seed for the participation/straggler stream "
                          "(default: --seed)")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="async round pipeline depth (train/pipeline.py): "
+                         "schedules/batches for this many rounds are drawn "
+                         "on a background thread and staged on the card "
+                         "while the current round runs, and metrics are "
+                         "read back lazily. 0 = fully synchronous (the "
+                         "trajectory is identical either way)")
     ap.add_argument("--capability-batching", action="store_true",
                     help="capability-aware local batch sizing: slow clients "
                          "get proportionally smaller per-step batches (round "
@@ -168,6 +256,36 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--server-lr-scale", type=float, default=None)
     ap.add_argument("--optimizer", default=None, choices=[None, "sgd", "adamw"])
+    ap.add_argument("--mesh", default=None, metavar="data=N[,model=K[,pod=P]]",
+                    help="shard the client axis over a device mesh: not "
+                         "ported yet, refused")
+    ap.add_argument("--client-chunk", type=int, default=None,
+                    help="client-block size: rounds process the client axis "
+                         "in blocks of this many clients (each block's "
+                         "backward before the next), so live activations "
+                         "stay one block's as the client count grows; must "
+                         "divide num-clients")
+    ap.add_argument("--data", default="synthetic",
+                    choices=["synthetic", "cached"],
+                    help="data path: 'synthetic' re-synthesizes every "
+                         "round's batch on the host; 'cached' reads "
+                         "deterministic mmap'd shards from --cache-dir "
+                         "(data/shards.py — built on first use if missing)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="cache directory for --data cached")
+    ap.add_argument("--dirichlet-alpha", type=float, default=None,
+                    help="with --data cached: build the cache as a "
+                         "Dirichlet(alpha) non-IID partition of a pooled "
+                         "corpus instead of per-client streams; small "
+                         "alpha = near-disjoint client label distributions")
+    ap.add_argument("--cache-examples", type=int, default=512,
+                    help="examples per client materialized when the cache "
+                         "is built on first use (--data cached)")
+    ap.add_argument("--vectorized-data", action="store_true",
+                    help="draw each round's synthetic batch with ONE batched "
+                         "numpy RNG pass across all clients (host cost per "
+                         "client flat in M) instead of the per-client loop; "
+                         "same distribution, different seeded stream")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=None,
                     help="use the reduced config (default: off for the paper-* "
@@ -195,6 +313,20 @@ def main(argv=None):
     if args.num_clients is not None:
         cfg = cfg.with_updates(num_clients=args.num_clients)
     M = cfg.num_clients
+    # refuse before paying for the model build or data synthesis
+    if args.mesh:
+        raise SystemExit("--mesh is not ported yet: the port trains on one "
+                         "device (see --client-chunk for large M)")
+    if args.client_chunk is not None and M % args.client_chunk != 0:
+        raise SystemExit(
+            f"--client-chunk {args.client_chunk} must divide the client "
+            f"count: {M} % {args.client_chunk} != 0 (pick a chunk that "
+            f"divides num-clients, or adjust --num-clients)")
+    if args.async_mode and args.client_chunk is not None:
+        raise SystemExit(
+            "--async is incompatible with --mesh/--client-chunk: the event "
+            "engine dispatches host-driven cohorts, not one sharded round "
+            "program")
     model = build_model(cfg)
 
     opt_name = args.optimizer or ("sgd" if is_classifier else "adamw")
@@ -224,7 +356,8 @@ def main(argv=None):
             args.topology, M, num_servers=args.num_servers,
             uplink=mbps(args.uplink_mbps or 0.0, lat),
             downlink=mbps(args.downlink_mbps or 0.0, lat),
-            backbone=mbps(args.backbone_mbps or 0.0, lat))
+            backbone=mbps(args.backbone_mbps or 0.0, lat),
+            sync_every=args.sync_every)
     spr = alg.steps_per_round(
         HParams(local_steps=args.local_steps).with_updates(**hp_overrides))
     # capability batching pads the generated rows so fast clients have
@@ -241,8 +374,17 @@ def main(argv=None):
     else:
         src = MultiTaskLMSource(vocab_size=cfg.vocab_size, num_clients=M,
                                 beta=1.0 - args.alpha, seed=args.seed)
-    batches = client_batches(src, per_round_batch, seed=args.seed,
-                             seq_len=None if is_classifier else args.seq_len)
+    rounds = num_rounds(args.steps, spr)
+    seq = None if is_classifier else args.seq_len
+    if args.data == "cached":
+        # cached shard READS replace per-round synthesis on the prefetch
+        # thread (data/shards.py); the cache is built once on first use
+        ds = _cached_dataset(args, src, M, is_classifier)
+        batches = client_batches(ds, per_round_batch, steps=rounds, seq_len=seq,
+                                 seed=args.seed)
+    else:
+        batches = client_batches(src, per_round_batch, steps=rounds, seq_len=seq,
+                                 seed=args.seed, vectorized=args.vectorized_data)
 
     clr = lr_policy.server_scaled(M, args.server_lr_scale)  # Eq. 9: 1/M
     tcfg = TrainConfig(steps=args.steps, algorithm=args.algorithm, lr=args.lr,
@@ -250,12 +392,22 @@ def main(argv=None):
                        hp_overrides=hp_overrides, schedule=scfg,
                        batch_per_client=args.batch_per_client, topology=topo,
                        device=args.device, checkpoint_path=args.checkpoint,
-                       checkpoint_every=100 if args.checkpoint else 0)
+                       checkpoint_every=100 if args.checkpoint else 0,
+                       prefetch=args.prefetch,
+                       time_per_sample_s=args.sim_ms_per_sample * 1e-3,
+                       client_chunk=args.client_chunk,
+                       async_mode=args.async_mode,
+                       staleness_decay=args.staleness_decay,
+                       max_staleness=args.max_staleness)
     state, history = train(model, opt, batches, tcfg, M, component_lr=clr)
     print(f"final loss: {history[-1]['loss']:.4f}")
-    if topo is not None:
-        print(f"simulated wall-clock ({topo.name}): "
-              f"{history[-1]['sim_time']:.2f}s over {history[-1]['round']} rounds")
+    if history and (topo is not None or args.async_mode):
+        t = topo.name if topo is not None else "star"
+        unit = "applies" if args.async_mode else "rounds"
+        print(f"simulated wall-clock ({t}"
+              + (", async" if args.async_mode else "")
+              + f"): {history[-1]['sim_time']:.2f}s over "
+              f"{history[-1]['round']} {unit}")
     return state, history
 
 

@@ -19,6 +19,18 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+def tree_align(tree: PyTree, like: PyTree) -> PyTree:
+    """`tree` with its dict keys in `like`'s order (the trees hold the same
+    keys): positional leaf walks of the two then pair the same leaves, as
+    they must for an update that zips a tree of gradients with its
+    parameters (a checkpoint stores dicts with sorted keys)."""
+    if isinstance(like, dict):
+        return {k: tree_align(tree[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [tree_align(t, v) for t, v in zip(tree, like)]
+    return tree
+
+
 def tree_leaves(tree: PyTree) -> List[Any]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]

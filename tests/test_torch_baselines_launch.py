@@ -129,11 +129,16 @@ def test_hp_flags_and_refusals():
         "sample_weighted": True, "prox_mu": 0.5, "num_clusters": 3}
     with pytest.raises(SystemExit):
         parse_hp_overrides(["sample_weighted=maybe"])
-    for flag in ("--sync-every", "--async", "--mesh"):
+    # the refusals that stay: --mesh, a chunk that does not divide M
+    # (smoke M = 3), and --async with --client-chunk, as the reference's
+    for flags in (["--mesh", "2"], ["--client-chunk", "2"],
+                  ["--async", "--client-chunk", "1"]):
         with pytest.raises(SystemExit):
-            main(["--device", "cpu", "--smoke", flag, "2"])
+            main(["--device", "cpu", "--smoke", *flags])
     cfg = get_config("paper-mlp", smoke=True)
-    for field in ("mesh", "async_mode", "client_chunk"):
-        with pytest.raises(NotImplementedError):
-            train(build_model(cfg), sgd(0.1), iter(()),
-                  TrainConfig(device="cpu", **{field: 1}), 3)
+    with pytest.raises(NotImplementedError):
+        train(build_model(cfg), sgd(0.1), iter(()),
+              TrainConfig(device="cpu", mesh=1), 3)
+    with pytest.raises(ValueError, match="async_mode is incompatible"):
+        train(build_model(cfg), sgd(0.1), iter(()),
+              TrainConfig(device="cpu", async_mode=True, client_chunk=1), 3)

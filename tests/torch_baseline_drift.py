@@ -28,7 +28,15 @@ prints, each from one initial state and the same numpy batches:
   nudge   the same setting for splitfed, 3 rounds: the reference from
           its init, the reference from that init with every leaf moved by
           one f32 ulp, and the port from the unmoved init; the loss of
-          each after every round, to tell sensitivity from a port fault.
+          each after every round, to tell sensitivity from a port fault;
+  overflow  the same setting for splitfed, 15 rounds: the reference and
+          the port from the reference's init and from 8 inits with every
+          leaf moved by +-1..+-4 f32 ulps (init i: 0 unmoved, 1..8 the
+          moves +1, -1, +2, -2, ...); after each round whether the
+          loss and every parameter of each package are finite. Prints
+          the round at which each run first goes non-finite and, per
+          package, how many of the runs did. `overflow:R:i-j` runs R
+          rounds of inits i..j (default 15 rounds, inits 0-8).
 """
 import itertools
 import sys
@@ -52,7 +60,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.train.loop import stage_batch
 from repro_torch.utils.convert import state_from_jax
 from repro_torch.utils.device import generator
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 P.SCHEDULES.setdefault("lm-masked", {"participation_rate": 0.5, "seed": 3})
 
@@ -240,6 +248,65 @@ def nudge(rounds=3):
         print(f"nudge splitfed round {r + 1}: loss reference "
               f"{float(met_j['loss']):.4f}, reference moved one ulp "
               f"{float(met_m['loss']):.4f}, port {float(met['loss']):.4f}", flush=True)
+
+
+_MOVES = (0, 1, -1, 2, -2, 3, -3, 4, -4)
+
+
+def _moved(x, k):
+    x = np.asarray(x)
+    if not np.issubdtype(x.dtype, np.floating):
+        return x
+    for _ in range(abs(k)):
+        x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf))
+    return x
+
+
+def _finite(leaves):
+    return all(bool(np.isfinite(np.asarray(x, np.float64)).all()) for x in leaves)
+
+
+def overflow(rounds=15, inits="0-8"):
+    cfg = get_config("paper-resnet16")
+    M, b, ls = cfg.num_clients, 8, 30
+    lo, hi = (int(v) for v in str(inits).split("-"))
+    model_j = jax_build_model(jax_get_config("paper-resnet16"))
+    src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
+                               channels=cfg.image_channels, seed=0)
+    batches = list(client_batches(src, b * ls, steps=int(rounds), seed=0))
+    hp_j = jax_alg.HParams(lr=0.1, local_steps=ls)
+    alg_j = jax_alg.get_algorithm("splitfed")
+    init_j = jax.tree.map(np.asarray, jax.jit(
+        lambda k: alg_j.init_state(model_j, k, M, hp_j))(jax.random.PRNGKey(0)))
+    rf_j = jax_alg.jit_round_fn(alg_j, model_j, M, hp_j)
+    rf = alg_mod.get_algorithm("splitfed").round_fn(
+        build_model(cfg), M, alg_mod.HParams(lr=0.1, local_steps=ls))
+    runs = []
+    for i in range(lo, hi + 1):
+        state_j = jax.tree.map(lambda x, k=_MOVES[i]: _moved(x, k), init_j)
+        runs.append({"i": i, "ref": state_j, "port": state_from_jax(
+            "splitfed", state_j, "cpu", cfg), "bad": {"reference": None, "port": None}})
+    # breadth first: every init advances one round before any takes the
+    # next, so a run cut short still covers all inits equally
+    for r, batch in enumerate(batches):
+        for run in runs:
+            run["ref"], met_j = rf_j(run["ref"], batch, jax_schedule.full_schedule(M, ls))
+            run["port"], met = rf(run["port"], stage_batch(batch, "cpu"),
+                                  schedule.full_schedule(M, ls))
+            ok_j = _finite([met_j["loss"]] + jax.tree.leaves(run["ref"]))
+            ok = _finite([met["loss"].detach()]
+                         + [x.detach() for x in tree_leaves(run["port"])])
+            for name, fine in (("reference", ok_j), ("port", ok)):
+                if not fine and run["bad"][name] is None:
+                    run["bad"][name] = r + 1
+            print(f"overflow init {run['i']} (move {_MOVES[run['i']]:+d} ulp) round "
+                  f"{r + 1}: loss reference {float(met_j['loss']):.4f} finite {ok_j}, "
+                  f"port {float(met['loss']):.4f} finite {ok}", flush=True)
+    for name in ("reference", "port"):
+        rs = [run["bad"][name] for run in runs]
+        print(f"overflow {name}: {sum(r is not None for r in rs)} of {len(rs)} "
+              f"runs non-finite within {rounds} rounds (first non-finite round "
+              f"per init {rs})", flush=True)
 
 
 if __name__ == "__main__":
