@@ -140,7 +140,7 @@ Phases, each of which must pass (any failure exits non-zero):
           in batches of up to 2^30 elements, each one multi-tensor launch
           over many leaves: bit-equal.
   lm-learn  mamba2-130m at its full config, M = 4, b = 4, S = 256, adamw at
-          lr 3e-3 (the LM example's), 100 rounds on a 4096-token
+          lr 3e-3 (the LM example's), 50 rounds on a 4096-token
           MultiTaskLMSource: the loss must fall, and every K3 launch takes
           the tensor-core path; reports each task's
           held-out loss beside its chain's entropy floor, the host time to
@@ -384,6 +384,37 @@ Phases, each of which must pass (any failure exits non-zero):
           the same tolerance, M/8 + 1 K1 launches a round), both M on the
           same per-block functions (the port is eager: there is no compile
           to count).
+  mesh    the client axis across ranks (`--mesh`, launch/mesh.py): full
+          paper-resnet16 mtsl (M = 10, b = 8, lr 0.1) for 20 rounds
+          through `repro_torch.launch.train --mesh data=1` on a world of
+          one rank over NCCL, under deterministic algorithms: history
+          and final state bit-equal to the run without a mesh, K1 once a
+          round. Then two ranks spawned on the one card over gloo (NCCL
+          refuses two ranks on one card), each running the same runs on
+          data=2 under deterministic algorithms, against the same runs
+          without a mesh on the card: `launch.train --mesh data=2` (5
+          clients a rank) with mtsl at lr 0.01 for 10 rounds (losses
+          within 1e-5 of their scale, the checkpoint's parameters within
+          1e-5; at lr 0.1 a reduction-order gap grows ~20x a step,
+          ROADMAP queue 3 facts) and bit-equal, history and checkpoint,
+          to the unsharded run with --client-chunk 5 (the same client
+          blocks in one process), 10 K1 launches on each rank; each of
+          the six baselines at lr 0.01 for 2 rounds of 2 local steps
+          (losses within 1e-5 of scale; one K1 launch a local step on
+          each rank); mamba2-130m's full config through train() (M = 4,
+          b = 4, S = 256, the 4096-token source, SGD lr 0.05, 5 rounds,
+          2 clients a rank) in its own dtype, bf16, bit-equal to the
+          unsharded run with client_chunk 2, its gap to the unchunked run
+          reported (bf16 rounds each rank's partial server gradient), and
+          in f32 within 1e-5 of scale of the unsharded run; K3 launches on
+          each rank as its clients' towers and its server batch make
+          them. The data=2 mtsl run's checkpoint (written by the first
+          rank, the whole state gathered) loads in a run without a mesh,
+          which resumes 5 rounds bit-equal to one resumed from the state
+          gathered in memory. Prints s a round with and without the mesh,
+          the bytes all-reduced and gathered a round and the host
+          seconds in collectives a round, per rank: on one shared card
+          this is the path's cost, not a scaling.
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -524,7 +555,8 @@ K3_CASES = [  # (case, B, L, H, P, N, chunk, dtype, initial state)
 K3_REL_L2 = {"bfloat16": 5e-3, "float32": 2e-6}
 LM_TRAIN = {"arch": "zamba2-7b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
             "lr": 0.05, "data_vocab": 4096}
-LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 100,
+# 50 rounds (100 until the mesh phase came, for the script's time limit)
+LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 50,
             "lr": 3e-3, "data_vocab": 4096, "log_every": 10}
 # the rest of the zoo at full width (num_layers: the depth cut, None for
 # full depth), each trained with SGD through the loop on a 4096-token LM
@@ -3680,6 +3712,13 @@ CACHED_RUN = {"rounds": 20, "examples": 512, "alpha": 0.1, "dir": "build/chip_ca
 CHUNK_RUN = {"M": 64, "chunk": 8, "rounds": 3, "lr": 0.01, "timed_rounds": 10,
              "scan_M": (32, 64)}
 CHUNK_LOSS_TOL = 1e-5  # of max(1, |loss|), and on parameters: the CPU tests'
+# mesh: data=1 over NCCL at the train phase's setting; data=2 at lr 0.01
+# (the full-width parameter gap grows ~20x a step at lr 0.1)
+MESH_RUN = {"nccl_rounds": 20, "nccl_lr": 0.1, "rounds": 10, "lr": 0.01,
+            "local_steps": 2, "baseline_rounds": 2, "resume_rounds": 5,
+            "world": 2, "dir": "build/mesh"}
+MESH_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 0.05,
+           "rounds": 5, "data_vocab": 4096}
 
 
 def _launch(argv):
@@ -4155,12 +4194,329 @@ def chunk_phase(torch, dev):
     return out
 
 
+def _mesh_argv(rounds: int, lr: float, alg: str = "mtsl", local_steps: int = 1):
+    return ["--arch", SYS_ARCH, "--algorithm", alg, "--device", "cuda", "--steps",
+            str(rounds * local_steps), "--local-steps", str(local_steps),
+            "--batch-per-client", str(SYS_B), "--lr", str(lr), "--seed", "0"]
+
+
+def _mesh_lm(torch, mesh_spec, dtype=None, chunk=None):
+    """mamba2-130m's full config through train() (MESH_LM), in its own
+    dtype unless `dtype`, on a mesh of `mesh_spec` or over client blocks of
+    `chunk` when given."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.launch.mesh import make_mesh_from_spec
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, train
+
+    c = MESH_LM
+    M = c["M"]
+    cfg = get_config(c["arch"])
+    if dtype:
+        cfg = cfg.with_updates(dtype=dtype)
+    mesh = make_mesh_from_spec(mesh_spec, "cuda") if mesh_spec else None
+    src = MultiTaskLMSource(vocab_size=c["data_vocab"], num_clients=M, beta=1.0, seed=0)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tcfg = TrainConfig(steps=c["rounds"], algorithm="mtsl", lr=c["lr"], log_every=1,
+                       seed=0, device=str(dev), mesh=mesh, client_chunk=chunk)
+    return train(build_model(cfg), sgd(c["lr"]),
+                 client_batches(src, c["b"], seed=0, seq_len=c["S"]), tcfg, M,
+                 component_lr=server_scaled(M), log=lambda _: None)
+
+
+def _mesh_job(torch, job: dict, mesh_spec=None, chunk=None):
+    """One run of the mesh phase: on `mesh_spec` when given (inside a rank
+    of its world), else without a mesh, over client blocks of `chunk` when
+    given: (JSON-able results, final state). The counts and the
+    collectives' tallies are set to 0 just before the run and read just
+    after."""
+    from repro_torch.core import client_axis
+
+    _reset_counts(torch)
+    client_axis.reset_collectives()
+    t0 = time.perf_counter()
+    if job["kind"] == "lm":
+        state, hist = _mesh_lm(torch, mesh_spec, job.get("dtype"), chunk)
+    else:
+        argv = list(job["argv"])
+        if mesh_spec:
+            argv += ["--mesh", mesh_spec] + (["--checkpoint", job["checkpoint"]]
+                                             if "checkpoint" in job else [])
+        if chunk:
+            argv += ["--client-chunk", str(chunk)]
+        state, hist, _ = _launch(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    times = [e["time"] for e in hist]
+    return {"losses": [e["loss"] for e in hist], "rounds": [e["round"] for e in hist],
+            "s_per_round": (times[-1] - times[0]) / max(hist[-1]["round"] - 1, 1),
+            "counts": _read_counts(torch), "wall_s": wall,
+            "collectives": client_axis.collective_stats()}, state
+
+
+def _mesh_jobs(folder) -> list:
+    """The data=2 runs: `twin` names the client chunk of the unsharded run
+    that splits the clients as the mesh does (bit-equal to it)."""
+    c, W = MESH_RUN, MESH_RUN["world"]
+    jobs = [{"name": "mtsl", "kind": "launch", "argv": _mesh_argv(c["rounds"], c["lr"]),
+             "steps": c["rounds"], "twin": 10 // W,
+             "checkpoint": str(folder / "mtsl.msgpack"),
+             "gathered": str(folder / "mtsl_gathered.pt")}]
+    jobs += [{"name": b, "kind": "launch", "steps": c["baseline_rounds"] * c["local_steps"],
+              "argv": _mesh_argv(c["baseline_rounds"], c["lr"], b, c["local_steps"])}
+             for b in BASELINES]
+    return jobs + [{"name": "lm", "kind": "lm", "steps": MESH_LM["rounds"],
+                    "twin": MESH_LM["M"] // W},
+                   {"name": "lm_f32", "kind": "lm", "dtype": "float32",
+                    "steps": MESH_LM["rounds"]}]
+
+
+def _mesh_rank(rank: int, world: int, rdv: str, jobs: list, folder: str):
+    """A spawned rank of the mesh phase: joins the world as the launcher
+    does (`init_distributed`, gloo when ranks share the card), runs every
+    job on data=world under deterministic algorithms, writes its results
+    to folder/rank<r>.json (and, for a job that asks, the first rank the
+    whole state gathered in memory to a file)."""
+    import torch
+    import torch.distributed as dist
+
+    res = {"rank": rank, "jobs": {}}
+    try:
+        from repro_torch.core.algorithms import gather_algorithm_state, get_algorithm
+        from repro_torch.launch import train as launch_train
+        from repro_torch.launch.mesh import make_mesh_from_spec
+
+        res["backend"] = launch_train.init_distributed("cuda", rank, world,
+                                                       f"file://{rdv}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        spec = f"data={world}"
+        with _deterministic(torch) as nondet:
+            for job in jobs:
+                out, state = _mesh_job(torch, job, spec)
+                if "gathered" in job:
+                    whole = gather_algorithm_state(get_algorithm("mtsl"), state,
+                                                   make_mesh_from_spec(spec, "cuda"))
+                    if rank == 0:
+                        torch.save(whole, job["gathered"])
+                res["jobs"][job["name"]] = out
+                del state
+                torch.cuda.empty_cache()
+        res["ops_without_deterministic_algorithm"] = nondet
+    except Exception:  # noqa: BLE001 — reported to the phase
+        res["error"] = traceback.format_exc()
+    finally:
+        Path(folder, f"rank{rank}.json").write_text(json.dumps(res))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _params_gap(a, b) -> float:
+    from repro_torch.utils.tree import tree_leaves_with_path
+
+    la, lb = (dict(tree_leaves_with_path(s.params)) for s in (a, b))
+    return max(float((la[k].detach().float() - lb[k].detach().float()).abs().max())
+               for k in la)
+
+
+def _loss_gap(got, want) -> tuple:
+    scale = max(1.0, max(abs(x) for x in want))
+    return max(abs(a - b) for a, b in zip(got, want)), scale
+
+
+def mesh_phase(torch, dev):
+    """mesh (see the module docstring)."""
+    import shutil
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lr_policy import server_scaled
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.train.checkpoint import load_algorithm_state
+    from repro_torch.train.loop import TrainConfig, train
+
+    c, W = MESH_RUN, MESH_RUN["world"]
+    folder = ROOT / c["dir"]
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    out = {"arch": SYS_ARCH, "M": 10, "b": SYS_B, "step_s": {}}
+    t0 = time.perf_counter()
+    try:
+        # data=1: one rank over NCCL, bit-equal to the run without a mesh
+        R = c["nccl_rounds"]
+        job = {"kind": "launch", "argv": _mesh_argv(R, c["nccl_lr"])}
+        with _deterministic(torch):
+            dense, s_dense = _mesh_job(torch, job)
+        note = launch_train.init_distributed("cuda", 0, 1,
+                                             f"file://{folder / 'nccl.rdv'}")
+        try:
+            with _deterministic(torch):
+                one, s_one = _mesh_job(torch, job, "data=1")
+        finally:
+            dist.destroy_process_group()
+        if not ("over nccl" in note and one["losses"] == dense["losses"]
+                and _state_bits_equal(torch, s_one, s_dense)):
+            raise AssertionError(f"mesh data=1 ({note}): losses {one['losses']} vs "
+                                 f"{dense['losses']}, or the states differ")
+        _check_k1(one["counts"], R, "mesh data=1")
+        out["data1_nccl"] = {"rounds": R, "lr": c["nccl_lr"], "backend": note,
+                             "bit_equal": True, "k1_launches": one["counts"]["k1"],
+                             "s_per_round": one["s_per_round"],
+                             "s_per_round_no_mesh": dense["s_per_round"],
+                             "collectives": one["collectives"]}
+        del s_dense, s_one
+        out["step_s"]["data1"] = time.perf_counter() - t0
+
+        # data=2 on the shared card: the runs without a mesh first, and the
+        # unsharded runs over the mesh's client blocks (`twin`)
+        t1 = time.perf_counter()
+        jobs = _mesh_jobs(folder)
+        plain, twins, states = {}, {}, {}
+        with _deterministic(torch):
+            for job in jobs:
+                plain[job["name"]], st = _mesh_job(torch, job)
+                if job["name"] == "mtsl":
+                    states["plain"] = st
+                del st
+                if "twin" in job:
+                    twins[job["name"]], st = _mesh_job(torch, job, chunk=job["twin"])
+                    if job["name"] == "mtsl":
+                        states["twin"] = st
+                    del st
+                torch.cuda.empty_cache()
+        out["step_s"]["unsharded"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(W, str(folder / "gloo.rdv"), jobs,
+                                                   str(folder)),
+                                 nprocs=W, start_method="spawn", join=False)
+        deadline = time.time() + 600
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError("mesh data=2: the ranks did not finish in 600 s")
+        out["step_s"]["ranks"] = time.perf_counter() - t1
+        ranks = [json.loads((folder / f"rank{r}.json").read_text()) for r in range(W)]
+        errs = [r["error"] for r in ranks if "error" in r]
+        if errs:
+            raise AssertionError("mesh data=2 rank failed:\n" + "\n".join(errs))
+        out["data2"] = {"world": W, "backend": ranks[0]["backend"], "runs": {}}
+        for job in jobs:
+            name = job["name"]
+            want = plain[name]
+            got = [r["jobs"][name] for r in ranks]
+            if any(g["losses"] != got[0]["losses"] for g in got):
+                raise AssertionError(f"mesh data=2 {name}: the ranks log different "
+                                     f"losses {[g['losses'] for g in got]}")
+            gap, scale = _loss_gap(got[0]["losses"], want["losses"])
+            run = {"loss_gap": gap, "loss_scale": scale, "losses": got[0]["losses"],
+                   "losses_no_mesh": want["losses"],
+                   "s_per_round": [g["s_per_round"] for g in got],
+                   "s_per_round_no_mesh": want["s_per_round"],
+                   "collectives": [g["collectives"] for g in got]}
+            if "twin" in job:
+                # the same client blocks in one process: bit for bit
+                twin = twins[name]["losses"]
+                run["twin_chunk"], run["twin_bit_equal"] = job["twin"], twin == got[0]["losses"]
+                if not run["twin_bit_equal"]:
+                    raise AssertionError(f"mesh data=2 {name}: losses {got[0]['losses']} "
+                                         f"!= --client-chunk {job['twin']}'s {twin}")
+            # bf16's rounding of each rank's partial server gradient parts
+            # the unchunked trajectory (reported); the f32 witness and
+            # every f32 run hold the stated tolerance
+            if name != "lm" and (got[0]["rounds"] != want["rounds"]
+                                 or gap > CHUNK_LOSS_TOL * scale):
+                raise AssertionError(f"mesh data=2 {name}: losses {got[0]['losses']} vs "
+                                     f"{want['losses']} (gap {gap}, scale {scale})")
+            if job["kind"] == "lm":
+                lcfg = get_config(MESH_LM["arch"])
+                per = _lm_launches_per_round(lcfg, MESH_LM["M"] // W)["k3"]
+                k3 = [g["counts"]["k3"] for g in got]
+                dense_want = _lm_launches_per_round(lcfg, MESH_LM["M"])["k3"]
+                if (k3 != [per * MESH_LM["rounds"]] * W
+                        or want["counts"]["k3"] != dense_want * MESH_LM["rounds"]
+                        or any(g["counts"]["k3_plain"] for g in got)):
+                    raise AssertionError(f"mesh data=2 {name}: K3 {k3} per rank, want "
+                                         f"{per} a round each; without the mesh "
+                                         f"{want['counts']['k3']}")
+                run.update(k3_launches_per_rank=k3,
+                           k3_launches_no_mesh=want["counts"]["k3"])
+            for r, g in enumerate(got):
+                _check_k1(g["counts"], job["steps"], f"mesh data=2 {name} rank {r}")
+            run["k1_launches_per_rank"] = [g["counts"]["k1"] for g in got]
+            out["data2"]["runs"][name] = run
+        # the data=2 mtsl run's checkpoint: against the run without a mesh
+        # (1e-5) and against its twin (bit for bit)
+        cfg = get_config(SYS_ARCH)
+        ckpt, _, extra = load_algorithm_state(jobs[0]["checkpoint"], "mtsl", cfg=cfg,
+                                              device=dev)
+        pgap = _params_gap(ckpt, states["plain"])
+        if (extra["round"] != c["rounds"] or pgap > CHUNK_LOSS_TOL
+                or not _state_bits_equal(torch, ckpt, states["twin"])):
+            raise AssertionError(f"mesh data=2 mtsl: checkpoint round {extra}, "
+                                 f"parameter gap {pgap} to the run without a mesh, "
+                                 "or not its --client-chunk twin's state")
+        out["data2"]["runs"]["mtsl"]["param_gap"] = pgap
+        del states
+        # resume without a mesh from the file and from the gathered state
+        t1 = time.perf_counter()
+        gathered = torch.load(jobs[0]["gathered"], map_location=dev, weights_only=False)
+        model, M = build_model(cfg), cfg.num_clients
+        R, R2 = c["rounds"], c["rounds"] + c["resume_rounds"]
+        stream = list(client_batches(_image_source(cfg, M), SYS_B, steps=R2, seed=0))[R:]
+        resumed = []
+        for init in (ckpt, gathered):
+            tcfg = TrainConfig(steps=R2, algorithm="mtsl", lr=c["lr"], seed=0,
+                               log_every=1, device="cuda")
+            with _deterministic(torch):
+                resumed.append(train(model, sgd(c["lr"]), iter(stream), tcfg, M,
+                                     component_lr=server_scaled(M), log=lambda _: None,
+                                     init_state=init, start_round=R))
+        (s_a, h_a), (s_b, h_b) = resumed
+        if ([e["loss"] for e in h_a] != [e["loss"] for e in h_b]
+                or not _state_bits_equal(torch, s_a, s_b)):
+            raise AssertionError("mesh: the resume from the data=2 checkpoint differs "
+                                 "from the resume from the gathered state")
+        out["resume"] = {"rounds": c["resume_rounds"], "bit_equal": True,
+                         "losses": [e["loss"] for e in h_a]}
+        out["step_s"]["resume"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    m2 = out["data2"]["runs"]["mtsl"]
+    for r in range(W):
+        col = m2["collectives"][r]
+        print(f"  mesh rank {r}: {m2['s_per_round'][r]:.4f} s a round at data=2 "
+              f"({m2['s_per_round_no_mesh']:.4f} without a mesh); all-reduced "
+              f"{col['all_reduce']['bytes'] / c['rounds']:.0f} B a round; over the "
+              f"run's {c['rounds']} rounds and its checkpoint, gathered "
+              f"{col['all_gather']['bytes']} B; host "
+              f"{(col['all_reduce']['host_s'] + col['all_gather']['host_s']) / c['rounds']:.4f} "
+              "s a round in collectives", flush=True)
+    for name in ("lm", "lm_f32"):
+        lm = out["data2"]["runs"][name]
+        print(f"  mesh {name}: loss gap to the unsharded run {lm['loss_gap']:.4g} "
+              f"(scale {lm['loss_scale']:.4g}, {lm['loss_gap'] / lm['loss_scale']:.3g} of "
+              f"it); K3 {lm['k3_launches_per_rank']} per rank "
+              f"({lm['k3_launches_no_mesh']} without the mesh)", flush=True)
+    print(f"  mesh steps: {json.dumps(out['step_s'])}", flush=True)
+    return out
+
+
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
           "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
           "swa-serve", "xparity", "graphs", "ckpt", "pipeline", "async", "cached",
-          "chunk")
+          "chunk", "mesh")
 
 
 def _phases_wanted(argv):
@@ -4411,7 +4767,11 @@ def main() -> int:
                  "Dirichlet) built on first use == in memory"),
                 ("chunk", chunk_phase, f"{SYS_ARCH} M={CHUNK_RUN['M']}, dense vs "
                  f"--client-chunk {CHUNK_RUN['chunk']}; the scan round at M "
-                 f"{CHUNK_RUN['scan_M']}")):
+                 f"{CHUNK_RUN['scan_M']}"),
+                ("mesh", mesh_phase, f"{SYS_ARCH} --mesh data=1 over NCCL; data="
+                 f"{MESH_RUN['world']} on the shared card over gloo (mtsl, the six "
+                 f"baselines, {MESH_LM['arch']}); a data={MESH_RUN['world']} "
+                 "checkpoint resumed")):
             if want(key):
                 print(f"[{key}] {what}", flush=True)
                 t1 = time.perf_counter()
@@ -4449,6 +4809,15 @@ def main() -> int:
         "scan_round_per_round": {m: r["k1_launches_per_round"]
                                  for m, r in report["chunk"]["scan"].items()}}
     k3["systems_launches"] = {"pipeline_lm": report["pipeline"]["lm"]["k3_launches"]}
+    # the mesh phase's launches, per rank: K1 at data=1 (NCCL) and on each
+    # data=2 rank (mtsl once a round, a baseline once a local step); K3 on
+    # each data=2 rank of the LM run
+    mesh = report["mesh"]
+    k1["mesh_launches"] = {"data1_nccl": mesh["data1_nccl"]["k1_launches"],
+                           **{f"data2_{name}_per_rank": run["k1_launches_per_rank"]
+                              for name, run in mesh["data2"]["runs"].items()}}
+    k3["mesh_launches"] = {f"data2_{name}_per_rank": mesh["data2"]["runs"][name][
+        "k3_launches_per_rank"] for name in ("lm", "lm_f32")}
     k4["serve_launches"] = {key: report[key]["counts"]["k4"]
                             for key in ("ssm-serve", "hybrid-serve")}
     zoo_serve = {"moe-serve": report["moe-serve"]["counts"],

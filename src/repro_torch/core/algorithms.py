@@ -26,7 +26,7 @@ An `Algorithm` bundles:
   state_to_tree / state_from_tree, serve_params, uses_optimizer,
   donate_state, client_axes, replica_avg_all, description: as the
       reference declares them (client_axes marks the leaves with a leading
-      client axis; nothing in the port shards over a mesh yet).
+      client axis, which a mesh splits over its client axes).
 
 The reference jits the round and donates the state's buffers
 (`jit_round_fn`). Here `round_fn`'s result runs eagerly: mtsl's apply step
@@ -34,10 +34,18 @@ updates the state's parameters in place; the baselines step copies of
 them in place (through K1) and return the new state.
 
 `phase_program` builds an algorithm's declared phases (the event engine,
-train/events.py, drives them). `shard_round_fn(..., client_chunk=c)` is
-the client-chunk half of the reference's: the round runs under
-`core.client_axis.client_axis(chunk=c)`, so every per-client map in it
-goes over M/c blocks. Mesh sharding is not ported (`mesh=` raises).
+train/events.py, drives them). `shard_round_fn(..., client_chunk=c,
+mesh=...)` treats the client axis as an execution resource, as the
+reference's: with a chunk every per-client map in the round goes over
+M/c blocks; with a mesh (launch/mesh.py, one process per mesh position)
+this process runs the round on its block of M/D clients under
+`client_axis(group=...)`, whose collectives make the cross-client
+reductions global (core/mtsl.py, core/federation.py, core/schedule.py
+name each one). `place_algorithm_state` keeps a state's client rows for
+this rank and replicates the rest; `gather_algorithm_state` is its
+inverse (checkpoints). K1 runs every rank's update: one launch per round
+(mtsl) or per local step (the baselines) over its tower rows and its
+replica of the shared leaves.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import comm_cost, federation, lr_policy, topology
-from repro_torch.core.client_axis import client_axis
+from repro_torch.core.client_axis import client_axis, current_group, gather_clients
 from repro_torch.core.mtsl import (
     TrainState,
     build_eval_step,
@@ -58,10 +66,17 @@ from repro_torch.core.mtsl import (
     init_state as mtsl_init_params,
 )
 from repro_torch.core.phases import PhaseProgram
-from repro_torch.core.schedule import schedule_tensors
+from repro_torch.core.schedule import full_schedule, local_schedule, schedule_tensors
 from repro_torch.core.split import replicate_tower
+from repro_torch.models.moe import rank_moe_groups
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.optim.per_component import ComponentLR
+from repro_torch.utils.sharding import (
+    client_axis_size,
+    client_group,
+    mesh_group,
+    mesh_ranks,
+)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_map_with_path
 
 PyTree = Any
@@ -159,31 +174,184 @@ def phase_program(alg: "Algorithm", model, num_clients: int,
     return alg.phases(model, num_clients, hp)
 
 
+def mesh_model(model, shards: int):
+    """`model` as a rank holding 1/`shards` of the client axis runs it: the
+    model itself, unless its MoE layers dispatch tokens in groups, which
+    the rank takes cfg.moe_groups/shards of (`models.moe.rank_moe_groups`,
+    which refuses a moe_groups that does not split so)."""
+    if shards == 1 or not model.cfg.num_experts:
+        return model
+    from repro_torch.models.registry import build_model
+
+    return build_model(model.cfg.with_updates(
+        moe_groups=rank_moe_groups(model.cfg, shards)))
+
+
+def client_rows(batch: dict, num_clients: int, rows: slice) -> dict:
+    """A round batch's rows for this rank: a tensor holding all
+    `num_clients` rows is cut to `rows`; one that already holds only this
+    rank's rows (staged per rank) passes."""
+    n = rows.stop - rows.start
+    out = {}
+    for k, x in batch.items():
+        if x.shape[0] == n:
+            out[k] = x
+        elif x.shape[0] == num_clients:
+            out[k] = x[rows]
+        else:
+            raise ValueError(f"batch[{k!r}] has {x.shape[0]} client rows; want "
+                             f"{num_clients} (all clients) or {n} (this rank's)")
+    return out
+
+
 def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
                    *, mesh=None, client_chunk: Optional[int] = None):
     """`alg.round_fn` with the client axis treated as an execution
-    resource. client_chunk=None is exactly `alg.round_fn`. With
-    `client_chunk=c` every call runs under `client_axis(chunk=c)`: the
-    per-client work goes over M/c blocks of c clients, each block's
-    backward before the next block's forward (core/client_axis.py). M must
-    divide by c. `mesh` (sharding the client axis over devices) is not
-    ported and raises."""
+    resource: optionally CHUNKED and optionally SHARDED over `mesh`'s
+    client axes (("pod", "data"), utils/sharding.py). mesh=None,
+    client_chunk=None is exactly `alg.round_fn`.
+
+    With `client_chunk=c` the per-client work goes over M/c blocks of c
+    clients, each block's backward before the next block's forward
+    (core/client_axis.py); M must divide by c. With `mesh`, this process
+    runs the round on its block of M/D clients under `client_axis(chunk=c,
+    group=...)`: the state must be placed (`place_algorithm_state`); the
+    batch may hold all M clients' rows or only this rank's; the schedule
+    is the round's whole numpy schedule (every rank draws the same one)
+    and each rank reads its rows. The returned state is this rank's; the
+    metrics are global. Requires M divisible by the client-shard count D,
+    and a chunk that is a multiple of D (each rank scans whole blocks of
+    c/D of its own clients)."""
+    group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding of the client axis is not ported yet")
-    fn = alg.round_fn(model, num_clients, hp)
-    if client_chunk is None:
-        return fn
-    if num_clients % client_chunk:
+        if alg.client_axes is None:
+            raise ValueError(
+                f"algorithm {alg.name!r} declares no client_axes; cannot "
+                "shard its state over a mesh (client chunking without a "
+                "mesh still works)")
+        D = client_axis_size(mesh)
+        if num_clients % D:
+            raise ValueError(
+                f"num_clients {num_clients} not divisible by the mesh's "
+                f"client-shard count {D}")
+        if client_chunk is not None and client_chunk % D:
+            raise ValueError(
+                f"client_chunk {client_chunk} must be a multiple of the "
+                f"mesh's client-shard count {D} (each device scans whole "
+                f"blocks of {client_chunk // max(D, 1)} clients)")
+        model = mesh_model(model, D)
+        group = client_group(mesh)
+    if client_chunk is not None and num_clients % client_chunk:
         raise ValueError(
             f"num_clients {num_clients} not divisible by client_chunk "
             f"{client_chunk}")
+    fn = alg.round_fn(model, num_clients, hp)
+    if group is None and client_chunk is None:
+        return fn
+    if group is None:
+        def chunked(state, batch, schedule=None):
+            with client_axis(chunk=client_chunk):
+                return fn(state, batch, schedule)
 
-    def chunked(state, batch, schedule=None):
-        with client_axis(chunk=client_chunk):
-            return fn(state, batch, schedule)
+        return chunked
+    rows = group.rows(num_clients)
+    spr = alg.steps_per_round(hp)
 
-    return chunked
+    def sharded(state, batch, schedule=None):
+        if schedule is None:
+            schedule = full_schedule(num_clients, spr)
+        with client_axis(chunk=client_chunk, group=group):
+            return fn(state, client_rows(batch, num_clients, rows),
+                      local_schedule(schedule, rows))
+
+    return sharded
+
+
+def _zip_map(fn, tree, marks):
+    """fn(leaf, mark) over a state and its client_axes marks (dicts, lists,
+    tuples and NamedTuples; any other object is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, marks[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zip_map(fn, v, m) for v, m in zip(tree, marks)]
+    if isinstance(tree, tuple):
+        vals = [_zip_map(fn, v, m) for v, m in zip(tree, marks)]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return fn(tree, marks)
+
+
+def _with_grad(state):
+    """An mtsl TrainState's parameters require grad, as `init_state` makes
+    them (a state rebuilt from numpy, or gathered, lost it)."""
+    if isinstance(state, TrainState):
+        state = state._replace(params=tree_map(
+            lambda x: x if x.requires_grad else x.requires_grad_(), state.params))
+    return state
+
+
+def place_algorithm_state(alg: "Algorithm", state: PyTree, mesh, device=None) -> PyTree:
+    """This rank's part of a whole state on `mesh`, per the algorithm's
+    `client_axes` declaration: each marked leaf keeps this rank's block of
+    its client rows; every other leaf is replicated, broadcast from the
+    mesh's first rank (one broadcast per dtype and device), so all ranks
+    start from its values. `state` holds tensors or numpy arrays (which
+    become tensors on `device`, default the CPU); the input is not
+    changed. No-op when mesh is None."""
+    if mesh is None:
+        return state
+    if alg.client_axes is None:
+        raise ValueError(
+            f"algorithm {alg.name!r} declares no client_axes; cannot place "
+            "its state on a mesh")
+    import torch.distributed as dist
+
+    group = client_group(mesh)
+    device = "cpu" if device is None else device
+    shared = []
+
+    def place(x, marked):
+        if not (torch.is_tensor(x) or isinstance(x, np.ndarray)):
+            return x
+        t = torch.as_tensor(x).detach()
+        if marked:
+            t = t[group.rows(t.shape[0])]
+        y = t.to(device if isinstance(x, np.ndarray) else t.device, copy=True)
+        if not marked:
+            shared.append(y)
+        return y.requires_grad_() if torch.is_tensor(x) and x.requires_grad else y
+
+    out = _zip_map(place, state, alg.client_axes(state))
+    by: dict = {}
+    for x in shared:
+        by.setdefault((x.dtype, x.device), []).append(x)
+    with torch.no_grad():
+        for xs in by.values():
+            flat = torch.cat([x.reshape(-1) for x in xs])
+            dist.broadcast(flat, src=mesh_ranks(mesh)[0], group=mesh_group(mesh))
+            lo = 0
+            for x in xs:
+                x.copy_(flat[lo:lo + x.numel()].view(x.shape))
+                lo += x.numel()
+    return _with_grad(out)
+
+
+def gather_algorithm_state(alg: "Algorithm", state: PyTree, mesh) -> PyTree:
+    """The whole state from each rank's part (the inverse of
+    `place_algorithm_state`): every marked leaf's blocks gathered over the
+    client group, in client order; the replicated leaves as they are. Every
+    rank of the mesh calls it and gets the whole state. No-op when mesh is
+    None."""
+    if mesh is None:
+        return state
+    group = client_group(mesh)
+
+    def gather(x, marked):
+        if not (marked and torch.is_tensor(x)):
+            return x
+        with client_axis(group=group):
+            return gather_clients(x)
+
+    return _with_grad(_zip_map(gather, state, alg.client_axes(state)))
 
 
 def _with_round_batch(prog: PhaseProgram, local_steps: int) -> PhaseProgram:
@@ -327,6 +495,14 @@ def _mtsl_component_lr(hp: HParams, num_clients: int) -> ComponentLR:
     return lr_policy.server_scaled(num_clients, server_scale=2.0 / num_clients)
 
 
+def _rank_clr(clr: ComponentLR, num_clients: int) -> ComponentLR:
+    """The per-client multipliers of this rank's clients under a mesh."""
+    g = current_group()
+    if g is None:
+        return clr
+    return ComponentLR(clr.server, clr.clients[g.rows(num_clients)])
+
+
 def _mtsl_init(model, gen, num_clients, hp: HParams) -> TrainState:
     params = mtsl_init_params(model, gen, num_clients)
     return TrainState(params, _mtsl_optimizer(hp).init(params), 0)
@@ -345,7 +521,7 @@ def _mtsl_round(model, num_clients, hp: HParams):
         dev = _state_device(state)
         clr = clr.to(dev)  # once: a no-op after the first round
         mask, _, sizes = schedule_tensors(schedule, dev)
-        return step(state, batch, clr, mask, sizes)
+        return step(state, batch, _rank_clr(clr, num_clients), mask, sizes)
 
     return round_fn
 
@@ -365,7 +541,8 @@ def _mtsl_phases(model, num_clients, hp: HParams) -> PhaseProgram:
         dev = _state_device(state)
         clr = clr.to(dev)
         mask, _, _ = schedule_tensors(schedule, dev)
-        return apply_step(state, payload["grads"], payload["metrics"], clr, mask)
+        return apply_step(state, payload["grads"], payload["metrics"],
+                          _rank_clr(clr, num_clients), mask)
 
     return PhaseProgram(local, apply)
 

@@ -1,6 +1,6 @@
 """The client axis as an execution resource: chunked maps over client
-blocks (port of `repro.core.client_axis`, its chunking half; the mesh
-half is not ported).
+blocks and the client axis split over a device mesh, behind one seam (port
+of `repro.core.client_axis`).
 
 Every round builder maps per-client work over the leading client
 dimension (towers, per-client batches, schedule rows). With no ambient
@@ -24,15 +24,28 @@ this is the dense gradient up to summation order):
     baseline's local steps go through (the reference's
     `_vmap_with_smask`), and its evals through `client_map`.
 
+The mesh half: under `client_axis(group=g)` (g a
+`utils.sharding.ClientGroup`) this process holds only its block of M/D
+clients of every client-axis tensor, and the round's cross-client
+reductions are a local reduction followed by an all-reduce over g's
+process group: `client_sum` / `client_sum_` (sums, coalesced per dtype),
+`client_max` and `gather_clients` (a [M/D, ...] tensor to the [M, ...]
+one in client order). Without a group each is the identity, so the
+single-device round computes what it did before. With a chunk, each rank
+scans its own clients in blocks of c/D (`current_chunk` is that per-rank
+block size), as the reference's devices each scan c/D of a chunk's c.
+
 `client_blocks(M)` gives the block slices; `client_map` is the forward
 map (eval, no gradient). The policy is read when a round RUNS (there is
-no trace): `core.algorithms.shard_round_fn(client_chunk=)` enters the
-context around each call. Nothing here touches global torch state.
+no trace): `core.algorithms.shard_round_fn(client_chunk=, mesh=)` enters
+the context around each call. Nothing here touches global torch state;
+`COLLECTIVES` counts the collectives' calls, bytes and host seconds.
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
-from typing import Callable, Iterator, NamedTuple, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -42,27 +55,137 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 class ClientAxisCtx(NamedTuple):
     """Ambient execution policy for the client axis."""
 
-    chunk: Optional[int] = None  # block size; None = all clients at once
+    chunk: Optional[int] = None  # block size over all ranks; None = no blocks
+    group: Optional[Any] = None  # utils.sharding.ClientGroup; None = no mesh
 
 
 _STACK: list = [ClientAxisCtx()]
 
 
 def current_chunk() -> Optional[int]:
-    return _STACK[-1].chunk
+    """This process's block size: the chunk, divided by the client-shard
+    count under a mesh (each rank scans c/D of a chunk's c clients)."""
+    ctx = _STACK[-1]
+    if ctx.chunk is None or ctx.group is None:
+        return ctx.chunk
+    return ctx.chunk // ctx.group.size
+
+
+def current_group():
+    """The ambient ClientGroup, or None off a mesh."""
+    return _STACK[-1].group
 
 
 @contextmanager
-def client_axis(chunk: Optional[int] = None):
+def client_axis(chunk: Optional[int] = None, group=None):
     """Scope a client-axis policy over the rounds run inside the block.
-    `chunk=None` is the identity."""
+    `chunk=None, group=None` is the identity."""
     if chunk is not None and chunk < 1:
         raise ValueError(f"client chunk must be >= 1, got {chunk}")
-    _STACK.append(ClientAxisCtx(chunk=chunk))
+    if chunk is not None and group is not None and chunk % group.size:
+        raise ValueError(f"client chunk {chunk} must be a multiple of the "
+                         f"mesh's client-shard count {group.size}")
+    _STACK.append(ClientAxisCtx(chunk=chunk, group=group))
     try:
         yield _STACK[-1]
     finally:
         _STACK.pop()
+
+
+# ---------------------------------------------------------------------------
+# collectives over the ambient client group
+# ---------------------------------------------------------------------------
+
+# calls, payload bytes and host seconds of the collectives below, by kind
+COLLECTIVES = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+
+
+def reset_collectives() -> None:
+    for v in COLLECTIVES.values():
+        v[:] = [0, 0, 0.0]
+
+
+def collective_stats() -> dict:
+    """{kind: {"calls", "bytes", "host_s"}} since the last reset."""
+    return {k: {"calls": c, "bytes": b, "host_s": s}
+            for k, (c, b, s) in COLLECTIVES.items()}
+
+
+def _count(kind: str, nbytes: int, t0: float) -> None:
+    rec = COLLECTIVES[kind]
+    rec[0] += 1
+    rec[1] += nbytes
+    rec[2] += time.perf_counter() - t0
+
+
+def _all_reduce(flat: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.all_reduce(flat, op=getattr(dist.ReduceOp, op), group=group.group)
+    _count("all_reduce", flat.numel() * flat.element_size(), t0)
+    return flat
+
+
+def client_sum_(tensors) -> list:
+    """The element-wise sums of `tensors` over the ambient client group
+    (each rank passes its partial sums; all get the totals), as new
+    tensors: one all-reduce per dtype and device, over the tensors
+    concatenated. The identity (the same tensors) without a group."""
+    g = current_group()
+    tensors = list(tensors)
+    if g is None:
+        return tensors
+    out = [None] * len(tensors)
+    by: dict = {}
+    for i, t in enumerate(tensors):
+        by.setdefault((t.dtype, t.device), []).append(i)
+    for idx in by.values():
+        flat = _all_reduce(torch.cat([tensors[i].detach().reshape(-1) for i in idx]),
+                           "SUM", g)
+        lo = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[lo:lo + n].view(tensors[i].shape)
+            lo += n
+    return out
+
+
+def client_sum(t: torch.Tensor) -> torch.Tensor:
+    """`client_sum_` of one tensor."""
+    return client_sum_([t])[0]
+
+
+def client_max(t: torch.Tensor) -> torch.Tensor:
+    """The element-wise max of `t` over the ambient client group."""
+    g = current_group()
+    if g is None:
+        return t
+    return _all_reduce(t.detach().clone(), "MAX", g)
+
+
+def gather_clients(t: torch.Tensor) -> torch.Tensor:
+    """This rank's [M/D, ...] block -> the whole [M, ...] tensor, blocks in
+    client order, on every rank of the ambient group. gloo carries only
+    all_reduce and broadcast for CUDA tensors, so under gloo a CUDA block
+    is gathered through the host."""
+    g = current_group()
+    if g is None:
+        return t
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    x = t.detach().contiguous()
+    if dist.get_backend(g.group) == "nccl":
+        out = x.new_empty((g.size * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=g.group)
+    else:
+        host = x.cpu()
+        parts = [torch.empty_like(host) for _ in range(g.size)]
+        dist.all_gather(parts, host, group=g.group)
+        out = torch.cat(parts).to(x.device)
+    _count("all_gather", x.numel() * x.element_size() * g.size, t0)
+    return out
 
 
 def client_blocks(num: int, chunk: Optional[int] = None,

@@ -60,6 +60,27 @@ How the port maps the reference's transforms:
     a time (the copies' parameters are disjoint, so every block's
     gradients are its own). The evals map through `client_map`; splitfed's
     local step goes through mtsl's chunked loss.
+  * the client axis over a mesh (core/client_axis.py): a rank runs the
+    rounds on its block of M/D clients (every round function takes the client
+    count from the tensors it is given) and each cross-client reduction is
+    a local reduction followed by an all-reduce over the client group:
+      - fedavg / fedprox: the round-end full-model means and their weight
+        totals (`participation_tree_mean`; under sample weighting also the
+        largest weight, a max);
+      - splitfed: the central server's gradient every local step (mtsl's
+        `_sum_server`) and the round-end tower mean;
+      - smofi: the active clients' mean server gradient fused into the
+        momentum every local step, whether any client is active, and the
+        round-end tower mean;
+      - parallelsfl: each cluster's weighted sums and weight totals, every
+        local step for the replicas' gradients and at round end for the
+        towers (a cluster's members may sit on several ranks, so
+        `_cluster_wmean` always reduces); the replicas' merge is over the
+        replicated [C] axis and stays local;
+      - fedem: the round-end component means over the participants;
+      - `sync_transform`'s tower mean;
+      - every round's per-task loss and every eval's per-task accuracy,
+        gathered before their sum or mean.
 """
 from __future__ import annotations
 
@@ -68,12 +89,21 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.client_axis import client_blocks, client_map, current_chunk
+from repro_torch.core.client_axis import (
+    client_blocks,
+    client_map,
+    client_sum,
+    client_sum_,
+    current_chunk,
+    current_group,
+    gather_clients,
+)
 from repro_torch.core.mtsl import (
     _at_least_f32,
     _ce_logits,
     _chunked_grads,
     _lm_loss,
+    _sum_server,
     make_loss_fn,
 )
 from repro_torch.core.phases import PhaseProgram, compose_phases
@@ -82,7 +112,7 @@ from repro_torch.core.schedule import (
     broadcast_weights,
     full_schedule,
     participation_bcast_mean,
-    participation_mean,
+    participation_tree_mean,
     schedule_sample_mask,
     schedule_tensors,
     step_activity,
@@ -104,9 +134,13 @@ def sync_transform(algorithm: str, num_clients: int) -> Callable[[PyTree], PyTre
     if algorithm == "mtsl":
         return lambda grads: grads
 
+    def _mean(g):
+        if current_group() is None:
+            return g.mean(0, keepdim=True)
+        return client_sum(g.sum(0, keepdim=True)) / num_clients
+
     def _avg_towers(grads):
-        towers = tree_map(lambda g: g.mean(0, keepdim=True).expand(g.shape),
-                          grads["towers"])
+        towers = tree_map(lambda g: _mean(g).expand(g.shape), grads["towers"])
         return {**grads, "towers": towers}
 
     if algorithm == "splitfed":
@@ -230,6 +264,13 @@ def _sgd_step(ps, gs, etas) -> None:
     mtsl_update_multi_(ps, [g.reshape(p.shape) for p, g in zip(ps, gs)], etas)
 
 
+def _round_metrics(per_last) -> dict:
+    """{"loss", "per_task"} of a round from the per-task losses of this
+    process's clients (gathered over the client group under a mesh)."""
+    per = gather_clients(per_last)
+    return {"loss": per.sum(), "per_task": per}
+
+
 # ---------------------------------------------------------------------------
 # fedprox / fedavg: local full-model steps, then full-model averaging
 # ---------------------------------------------------------------------------
@@ -283,11 +324,9 @@ def build_fedprox_phases(model: Model, lr: float, num_clients: int,
     def apply_phase(params, payload, schedule: ClientSchedule):
         mask, _, sizes = schedule_tensors(schedule, _device(params))
         fed_w = sizes.float() if sample_weighted and sizes is not None else None
-        avg = tree_map(lambda x: participation_bcast_mean(x, mask, fed_w),
-                       payload["pcs"])
+        avg = participation_tree_mean(payload["pcs"], mask, fed_w, bcast=True)
         new = {"towers": avg["tower"], "servers": avg["server"]}
-        losses = payload["losses"] * mask
-        return new, {"loss": losses.sum(), "per_task": losses}
+        return new, _round_metrics(payload["losses"] * mask)
 
     return PhaseProgram(local_phase, apply_phase)
 
@@ -324,8 +363,8 @@ def eval_fedavg(model: Model, num_clients: int):
     @torch.no_grad()
     def eval_fn(params, batch):
         inputs = {k: v for k, v in batch.items() if k != "label"}
-        accs = client_map(acc, params["towers"], params["servers"], inputs,
-                          batch["label"])
+        accs = gather_clients(client_map(acc, params["towers"], params["servers"],
+                                         inputs, batch["label"]))
         return {"per_task_acc": accs, "acc_mtl": accs.mean()}
 
     return eval_fn
@@ -367,15 +406,16 @@ def build_splitfed_phases(model: Model, lr: float, num_clients: int,
         per = []
         chunk = current_chunk()
         for t in range(local_steps):
-            if chunk is not None and chunk < num_clients:
-                metrics, grads = _chunked_grads(model, num_clients, chunk, p,
+            if chunk is not None and chunk < mask.shape[0]:
+                metrics, grads = _chunked_grads(model, chunk, p,
                                                 _step_batch(batch, t), act[t], smask)
-                gs = [g for k in p for g in tree_leaves(grads[k])]
             else:
                 req = [x.detach().requires_grad_() for x in ps]
-                loss, metrics = loss_fn(tree_unflatten_like(p, req),
-                                        _step_batch(batch, t), act[t], smask)
-                gs = torch.autograd.grad(loss, req)
+                obj, metrics = loss_fn(tree_unflatten_like(p, req),
+                                       _step_batch(batch, t), act[t], smask)
+                grads = _sum_server(tree_unflatten_like(
+                    p, torch.autograd.grad(obj, req)))
+            gs = [g for k in p for g in tree_leaves(grads[k])]
             _sgd_step(ps, gs, [eta] * len(ps))
             per.append(metrics["per_task"].detach())
         return {"params": p, "per": torch.stack(per)}
@@ -383,10 +423,9 @@ def build_splitfed_phases(model: Model, lr: float, num_clients: int,
     def apply_phase(params, payload, schedule: ClientSchedule):
         mask, _, _ = schedule_tensors(schedule, _device(params))
         p, per = payload["params"], payload["per"]
-        towers = tree_map(lambda x: participation_bcast_mean(x, mask), p["towers"])
-        per_last = per[-1] * mask
+        towers = participation_tree_mean(p["towers"], mask, bcast=True)
         return ({"towers": towers, "server": p["server"]},
-                {"loss": per_last.sum(), "per_task": per_last})
+                _round_metrics(per[-1] * mask))
 
     return PhaseProgram(local_phase, apply_phase)
 
@@ -449,16 +488,20 @@ def _cluster_onehot(cidx, C: int):
     return (cidx[None, :] == torch.arange(C, device=cidx.device)[:, None]).float()
 
 
-def _cluster_wmean(x, w, onehot):
-    """[M, ...] values, [M] weights -> ([C, ...] weighted means over each
-    cluster's members (all-zero clusters -> 0), [C] weight sums). A
-    fixed-order masked sum per cluster (the reference's segment_sum):
-    deterministic on the card, where index_add is not."""
-    xw = x * broadcast_weights(w, x)
-    s = torch.stack([(xw * broadcast_weights(onehot[c], xw)).sum(0)
-                     for c in range(onehot.shape[0])])
-    wc = (onehot * w[None, :]).sum(1)
-    return s / broadcast_weights(torch.clamp(wc, min=1.0), s), wc
+def _cluster_wmean(xs, w, onehot):
+    """[M, ...] values (a list), [M] weights -> ([C, ...] weighted means
+    over each cluster's members (all-zero clusters -> 0), one per value;
+    [C] weight sums). A fixed-order masked sum per cluster (the
+    reference's segment_sum): deterministic on the card, where index_add
+    is not. The sums and weight totals are summed over the client group
+    (one all-reduce per dtype under a mesh)."""
+    sums = []
+    for x in xs:
+        xw = x * broadcast_weights(w, x)
+        sums.append(torch.stack([(xw * broadcast_weights(onehot[c], xw)).sum(0)
+                                 for c in range(onehot.shape[0])]))
+    wc, *sums = client_sum_([(onehot * w[None, :]).sum(1), *sums])
+    return [s / broadcast_weights(torch.clamp(wc, min=1.0), s) for s in sums], wc
 
 
 def build_parallelsfl_phases(model: Model, lr: float, num_clients: int,
@@ -484,10 +527,9 @@ def build_parallelsfl_phases(model: Model, lr: float, num_clients: int,
             servers_pc = tree_map(lambda s: s[cidx], servers)  # [M, ...]
             losses, grads = vg({"tower": towers, "server": servers_pc},
                                _step_batch(batch, t), smask)
-            gms = [_cluster_wmean(g, a, onehot)[0]
-                   for g in tree_leaves(grads["server"])]
             # a cluster with no active member this step holds its replica
-            live = lr * ((onehot * a[None, :]).sum(1) > 0).float()  # [C]
+            gms, wc = _cluster_wmean(tree_leaves(grads["server"]), a, onehot)
+            live = lr * (wc > 0).float()  # [C]
             _sgd_step(tl + sl, tree_leaves(grads["tower"]) + gms,
                       [lr * a] * len(tl) + [live] * len(sl))
             per.append(losses)
@@ -501,19 +543,17 @@ def build_parallelsfl_phases(model: Model, lr: float, num_clients: int,
         # fed-average towers within each cluster over the round's
         # participants (idle clusters hold), merge the replicas of clusters
         # that trained and give the result to all C
-        wc = (onehot * mask[None, :]).sum(1)  # [C]
+        xs = tree_leaves(payload["towers"])
+        means, wc = _cluster_wmean(xs, mask, onehot)  # wc [C]
         has = (wc > 0).to(mask.dtype)
-
-        def merge_towers(x):
-            m, _ = _cluster_wmean(x, mask, onehot)
-            return torch.where(broadcast_weights(wc[cidx] > 0, x), m[cidx], x)
-
-        towers = tree_map(merge_towers, payload["towers"])
-        servers = tree_map(lambda s: participation_bcast_mean(s, has),
+        towers = tree_unflatten_like(payload["towers"], [
+            torch.where(broadcast_weights(wc[cidx] > 0, x), m[cidx], x)
+            for x, m in zip(xs, means)])
+        # the replicas' merge is over the replicated cluster axis
+        servers = tree_map(lambda s: participation_bcast_mean(s, has, clients=False),
                            payload["servers"])
-        per_last = payload["per"][-1] * mask
         return ({"towers": towers, "servers": servers, "cidx": cidx},
-                {"loss": per_last.sum(), "per_task": per_last})
+                _round_metrics(payload["per"][-1] * mask))
 
     return PhaseProgram(local_phase, apply_phase)
 
@@ -528,7 +568,8 @@ def eval_parallelsfl(model: Model, num_clients: int):
         cidx = params["cidx"]
         servers_pc = tree_map(lambda s: s[cidx], params["servers"])
         inputs = {k: v for k, v in batch.items() if k != "label"}
-        accs = client_map(acc, params["towers"], servers_pc, inputs, batch["label"])
+        accs = gather_clients(client_map(acc, params["towers"], servers_pc, inputs,
+                                         batch["label"]))
         return {"per_task_acc": accs, "acc_mtl": accs.mean()}
 
     return eval_fn
@@ -561,12 +602,12 @@ def build_smofi_phases(model: Model, lr: float, num_clients: int,
     per-client towers); `apply` federates the towers over the participants
     and commits server and momentum."""
     vg = _client_value_and_grad(model)
-    M = num_clients
 
     def local_phase(state, batch, schedule: ClientSchedule):
         mask, budget, _ = schedule_tensors(schedule, _device(state))
+        M = mask.shape[0]
         act = step_activity(mask, budget, local_steps)  # [k, M]
-        any_act = (act.sum(1) > 0).float()  # [k]
+        any_act = (client_sum(act.sum(1)) > 0).float()  # [k]
         smask = schedule_sample_mask(schedule, batch)
         towers, server = _copy(state["towers"]), _copy(state["server"])
         smom = _copy(state["smom"])
@@ -579,8 +620,8 @@ def build_smofi_phases(model: Model, lr: float, num_clients: int,
             losses, grads = vg({"tower": towers, "server": server_pc},
                                _step_batch(batch, t), smask)
             # the fused buffer takes the ACTIVE clients' mean server gradient
-            fused = tree_map(lambda v, g: momentum * v + participation_mean(g, a),
-                             smom, grads["server"])
+            fused = tree_map(lambda v, g: momentum * v + g, smom,
+                             participation_tree_mean(grads["server"], a))
             smom = tree_map(lambda n, o: torch.where(any_act[t] > 0, n, o),
                             fused, smom)
             _sgd_step(tl + sl, tree_leaves(grads["tower"]) + tree_leaves(smom),
@@ -591,12 +632,10 @@ def build_smofi_phases(model: Model, lr: float, num_clients: int,
 
     def apply_phase(state, payload, schedule: ClientSchedule):
         mask, _, _ = schedule_tensors(schedule, _device(state))
-        towers = tree_map(lambda x: participation_bcast_mean(x, mask),
-                          payload["towers"])
-        per_last = payload["per"][-1] * mask
+        towers = participation_tree_mean(payload["towers"], mask, bcast=True)
         return ({"towers": towers, "server": payload["server"],
                  "smom": payload["smom"]},
-                {"loss": per_last.sum(), "per_task": per_last})
+                _round_metrics(payload["per"][-1] * mask))
 
     return PhaseProgram(local_phase, apply_phase)
 
@@ -656,16 +695,17 @@ def build_fedem_phases(model: Model, lr: float, num_clients: int,
     responsibilities. The round metric `loss` is 0, as the reference's
     (eval recomputes the loss)."""
     vg = _client_value_and_grad(model)
-    M, K = num_clients, num_components
+    K = num_components
 
     def fold(x):  # [M, K, ...] -> [M·K, ...] (a view)
-        return x.reshape((M * K,) + tuple(x.shape[2:]))
+        return x.reshape((-1,) + tuple(x.shape[2:]))
 
     def per_component(x):  # [M, ...] -> [M·K, ...], each client's row K times
-        return fold(x[:, None].expand((M, K) + tuple(x.shape[1:])))
+        return fold(x[:, None].expand((x.shape[0], K) + tuple(x.shape[1:])))
 
     def local_phase(state, batch, schedule: ClientSchedule):
         components, pi = state
+        M = pi.shape[0]
         _, budget, _ = schedule_tensors(schedule, pi.device)
         smask = schedule_sample_mask(schedule, batch)
         active = _in_budget(budget, local_steps)  # [k, M]
@@ -701,7 +741,7 @@ def build_fedem_phases(model: Model, lr: float, num_clients: int,
         _, pi = state
         mask, _, _ = schedule_tensors(schedule, pi.device)
         comps, r_mean = payload["comps"], payload["r_mean"]
-        new_components = tree_map(lambda x: participation_mean(x, mask), comps)
+        new_components = participation_tree_mean(comps, mask)
         r_norm = r_mean / r_mean.sum(-1, keepdim=True)
         # non-participants keep last round's responsibilities
         new_pi = torch.where(mask[:, None] > 0, r_norm, pi)
@@ -781,7 +821,6 @@ def build_fedem_eval_step(model: Model, num_clients: int) -> Callable:
     components' class probabilities (classifiers)."""
     if not _is_classifier(model):
         raise NotImplementedError("FedEM eval is implemented for classifiers")
-    M = num_clients
 
     def comp_probs(comp, flat_in):
         logits, _ = model.server_forward(comp["server"],
@@ -792,13 +831,14 @@ def build_fedem_eval_step(model: Model, num_clients: int) -> Callable:
 
     @torch.no_grad()
     def eval_step(state: FedEMState, batch):
+        M = state.pi.shape[0]
         inputs = {k: v for k, v in batch.items() if k != "label"}
         flat_in = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in inputs.items()}
         probs = probs_fn(state.components, flat_in)  # [K, M·b, C]
         probs = probs.reshape(probs.shape[0], M, -1, probs.shape[-1])
         mixed = torch.einsum("kmbc,mk->mbc", probs, state.pi)
         correct = (mixed.argmax(-1) == batch["label"].long()).float()
-        per_task_acc = correct.mean(1)
+        per_task_acc = gather_clients(correct.mean(1))
         return {"per_task_acc": per_task_acc, "acc_mtl": per_task_acc.mean()}
 
     return eval_step

@@ -31,6 +31,23 @@ reference's `_chunked_loss` / `_chunk_terms`), so only one block's
 activations are live; the server's gradient is the sum of the blocks'
 and the aux loss the sum of their aux terms, as in the reference's
 chunked loss. The eval runs block by block too (`_chunk_eval`).
+
+Under a mesh (`client_axis(group=...)`, core/client_axis.py) a rank holds
+M/D clients and every function here takes its client count from the
+batch it is given. The cross-client reductions, each a local reduction
+then an all-reduce over the client group:
+
+  * the server's gradient: the sum over the rank's clients, then
+    `client_sum_` (`_sum_server`);
+  * the loss: the per-task terms gathered (`gather_clients`) and summed,
+    plus the aux loss. The MoE aux is a mean over dispatch groups, and a
+    rank dispatches its own tokens as moe_groups/D groups
+    (`core.algorithms.mesh_model`), so each rank's objective takes aux/D
+    and the global aux is the sum of those shares (`_objective`);
+  * the training accuracy: its numerator and its sample-weighted
+    denominator, summed (`_acc`);
+  * the round's per-task metric and the eval's per-task accuracy or loss,
+    gathered before their mean or sum.
 """
 from __future__ import annotations
 
@@ -108,24 +125,66 @@ def _is_classifier(cfg) -> bool:
     return cfg.family in ("mlp", "resnet")
 
 
-def _towers_fn(model: Model, num_clients: int) -> Callable:
+def _rows(batch) -> int:
+    """The client rows of a batch (M, or a rank's M/D under a mesh)."""
+    return next(iter(batch.values())).shape[0]
+
+
+def _towers_fn(model: Model, num_clients: Optional[int] = None) -> Callable:
     """towers_fwd(towers, inputs) -> smashed {"h": [M, ...]}: the client
-    towers over the leading client axis (see the module docstring)."""
+    towers over the leading client axis of `inputs`, whose rows give the
+    client count (see the module docstring; `num_clients` is not read)."""
     if _is_classifier(model.cfg):
         return torch.func.vmap(model.tower_forward)
 
     def towers_fwd(towers, inputs):
         outs = [model.tower_forward(client_view(towers, m),
                                     {k: v[m] for k, v in inputs.items()})
-                for m in range(num_clients)]
+                for m in range(_rows(inputs))]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     return towers_fwd
 
 
+def _objective(wper, aux):
+    """(the objective this process differentiates, the round's loss, its
+    aux loss). Off a mesh both are sum(wper) + aux. Under one, the
+    objective is this rank's share, sum of its wper + aux/D, and the loss
+    is global (see the module docstring)."""
+    g = client_axis.current_group()
+    if g is None:
+        loss = wper.sum() + aux
+        return loss, loss, aux
+    share = aux / g.size
+    aux_all = client_axis.client_sum(share.detach())
+    loss = client_axis.gather_clients(wper.detach()).sum() + aux_all
+    return wper.sum() + share, loss, aux_all
+
+
+def _acc(correct, num, den, floor):
+    """The training accuracy num / max(den, floor) (floor None: the plain
+    mean of `correct`), with num and den summed over the client group
+    under a mesh."""
+    if client_axis.current_group() is None:
+        return correct.mean() if floor is None else num / torch.clamp(den, min=floor)
+    num, den = client_axis.client_sum_([num, den])
+    return num / (den if floor is None else torch.clamp(den, min=floor))
+
+
+def _sum_server(grads):
+    """The gradient tree with its server part summed over the client group
+    (one all-reduce per dtype; the identity off a mesh)."""
+    if client_axis.current_group() is None:
+        return grads
+    server = tree_leaves(grads["server"])
+    return {**grads, "server": tree_unflatten(grads["server"],
+                                              client_axis.client_sum_(server))}
+
+
 def make_loss_fn(model: Model, num_clients: int) -> Callable:
     """loss_fn(params, batch, participation=None, sample_mask=None,
-    sample_denom=None) -> (loss, metrics).
+    sample_denom=None) -> (objective, metrics); off a mesh the objective
+    is metrics["loss"] (see `_objective`).
 
     batch: {"image": [M, b, ...], "label": [M, b]} (classifiers; metrics
     loss, per_task, acc, aux) or {"tokens": [M, b, S]} (+ "vis" for the
@@ -150,12 +209,12 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
     clamped to 1, so a size-0 client adds nothing to the accuracy
     denominator either)."""
     cfg = model.cfg
-    M = num_clients
     is_classifier = _is_classifier(cfg)
-    towers_fwd = _towers_fn(model, M)
+    towers_fwd = _towers_fn(model)
 
     def loss_fn(params, batch, participation=None, sample_mask=None,
                 sample_denom=None):
+        M = _rows(batch)
         inputs = {k: v for k, v in batch.items() if k != "label"}
         smashed = towers_fwd(params["towers"], inputs)
         if participation is not None:
@@ -182,27 +241,28 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
                 per = _lm_loss(per_logits, tokens, sample_mask,
                                torch.clamp(sample_denom * seq_tokens, min=1e-9))
             wper = per if participation is None else per * participation
-            loss = wper.sum() + aux
-            return loss, {"loss": loss, "per_task": per, "aux": aux}
+            obj, loss, aux = _objective(wper, aux)
+            return obj, {"loss": loss, "per_task": per, "aux": aux}
         labels = batch["label"]
         logits32 = _at_least_f32(logits)
         per_logits = logits32.reshape(M, -1, logits.shape[-1])
         correct = (logits32.argmax(-1) == labels.reshape(-1).long()).float()
         if sample_mask is None:
             per = _ce_logits(per_logits, labels)
-            acc = correct.mean()
+            num, den, floor = correct.sum(), correct.new_tensor(correct.numel()), None
         else:
             if sample_denom is None:
                 per = _ce_logits(per_logits, labels, sample_mask)
-                acc_denom = torch.clamp(sample_mask.sum(), min=1.0)
+                den, floor = sample_mask.sum(), 1.0
             else:
                 per = _ce_logits(per_logits, labels, sample_mask,
                                  torch.clamp(sample_denom, min=1e-9))
-                acc_denom = torch.clamp(sample_denom.sum(), min=1e-9)
-            acc = (correct * sample_mask.reshape(-1)).sum() / acc_denom
+                den, floor = sample_denom.sum(), 1e-9
+            num = (correct * sample_mask.reshape(-1)).sum()
+        acc = _acc(correct, num, den, floor)
         wper = per if participation is None else per * participation
-        loss = wper.sum() + aux
-        return loss, {"loss": loss, "per_task": per, "acc": acc, "aux": aux}
+        obj, loss, aux = _objective(wper, aux)
+        return obj, {"loss": loss, "per_task": per, "acc": acc, "aux": aux}
 
     return loss_fn
 
@@ -212,7 +272,7 @@ def _chunk_terms_fn(model: Model, c: int) -> Callable:
     block's accuracy numerator, aux): one block of c clients' forward, the
     dense loss body with M -> c (the reference's `_chunk_terms`)."""
     is_classifier = _is_classifier(model.cfg)
-    towers_fwd = _towers_fn(model, c)
+    towers_fwd = _towers_fn(model)
 
     def terms(params, batch, part=None, sm=None, sd=None):
         inputs = {k: v for k, v in batch.items() if k != "label"}
@@ -252,13 +312,15 @@ def _chunk_terms_fn(model: Model, c: int) -> Callable:
     return terms
 
 
-def _chunked_grads(model: Model, num_clients: int, c: int, params, batch,
+def _chunked_grads(model: Model, c: int, params, batch,
                    participation=None, smask=None, sdenom=None):
     """(metrics, grads) of the round's loss with the clients in blocks of
     c: each block's forward and backward run before the next block's, its
     tower gradients are its own and the server's gradient accumulates over
-    the blocks (see the module docstring)."""
-    M = num_clients
+    the blocks, then over the client group under a mesh (see the module
+    docstring)."""
+    M = _rows(batch)
+    g_mesh = client_axis.current_group()
     terms = _chunk_terms_fn(model, c)
     t_leaves = tree_leaves(params["towers"])
     s_req = [x.detach().requires_grad_() for x in tree_leaves(params["server"])]
@@ -273,7 +335,9 @@ def _chunked_grads(model: Model, num_clients: int, c: int, params, batch,
                               None if smask is None else smask[sl],
                               None if sdenom is None else sdenom[sl])
         wper = per if part is None else per * part
-        g = torch.autograd.grad(wper.sum() + aux, t_req + s_req)
+        g = torch.autograd.grad(
+            wper.sum() + (aux if g_mesh is None else aux / g_mesh.size),
+            t_req + s_req)
         tgs.append(g[:len(t_req)])
         gs = g[len(t_req):]
         sg = list(gs) if sg is None else [a + b for a, b in zip(sg, gs)]
@@ -283,20 +347,20 @@ def _chunked_grads(model: Model, num_clients: int, c: int, params, batch,
         aux_sum = aux if aux_sum is None else aux_sum + aux
     per = torch.cat(pers)
     wper = per if participation is None else per * participation
-    loss = wper.sum() + aux_sum
-    grads = {"towers": tree_unflatten(params["towers"],
-                                      [torch.cat(x) for x in zip(*tgs)]),
-             "server": tree_unflatten(params["server"], sg)}
+    _, loss, aux_sum = _objective(wper, aux_sum)
+    grads = _sum_server({"towers": tree_unflatten(params["towers"],
+                                                  [torch.cat(x) for x in zip(*tgs)]),
+                         "server": tree_unflatten(params["server"], sg)})
     metrics = {"loss": loss, "per_task": per, "aux": aux_sum}
     if _is_classifier(model.cfg):
         width = tree_leaves(batch)[0].shape[1]
         if smask is None:
-            den = torch.tensor(float(M * width), device=per.device)
+            den, floor = torch.tensor(float(M * width), device=per.device), 0.0
         elif sdenom is None:
-            den = torch.clamp(smask.sum(), min=1.0)
+            den, floor = smask.sum(), 1.0
         else:
-            den = torch.clamp(sdenom.sum(), min=1e-9)
-        metrics["acc"] = acc_num / den
+            den, floor = sdenom.sum(), 1e-9
+        metrics["acc"] = _acc(None, acc_num, den, floor)
     return metrics, grads
 
 
@@ -360,14 +424,14 @@ def build_train_phases(
 
     def _grads(params, batch, participation=None, smask=None, sdenom=None):
         chunk = client_axis.current_chunk()
-        if chunk is not None and chunk < num_clients:
-            return _chunked_grads(model, num_clients, chunk, params, batch,
+        if chunk is not None and chunk < _rows(batch):
+            return _chunked_grads(model, chunk, params, batch,
                                   participation, smask, sdenom)
-        loss, metrics = loss_fn(params, batch, participation, smask, sdenom)
+        obj, metrics = loss_fn(params, batch, participation, smask, sdenom)
         leaves = tree_leaves(params)
-        flat = torch.autograd.grad(loss, leaves)
+        flat = torch.autograd.grad(obj, leaves)
         it = iter(flat)
-        grads = tree_map(lambda _: next(it), params)
+        grads = _sum_server(tree_map(lambda _: next(it), params))
         return tree_map(torch.Tensor.detach, metrics), grads
 
     def local_step(state: TrainState, batch, participation=None,
@@ -377,7 +441,7 @@ def build_train_phases(
                  else schedule_mod.sample_mask(sample_sizes, width))
         if microbatches == 1:
             metrics, grads = _grads(state.params, batch, participation, smask)
-            return grads, metrics
+            return grads, _gather_per_task(metrics)
         if width % microbatches:
             raise ValueError(f"batch width {width} is not divisible by "
                              f"microbatches={microbatches}")
@@ -400,7 +464,7 @@ def build_train_phases(
                 metrics = tree_map(torch.add, metrics, m_j)
         inv = 1.0 / microbatches
         return (tree_map(lambda g: g * inv, grads),
-                tree_map(lambda m: m * inv, metrics))
+                _gather_per_task(tree_map(lambda m: m * inv, metrics)))
 
     def apply_step(state: TrainState, grads, metrics,
                    component_lr: Optional[ComponentLR] = None,
@@ -413,42 +477,49 @@ def build_train_phases(
     return local_step, apply_step
 
 
+def _gather_per_task(metrics: dict) -> dict:
+    """The round's per-task metric over all clients (a rank computes its
+    own block's)."""
+    if client_axis.current_group() is None:
+        return metrics
+    return {**metrics, "per_task": client_axis.gather_clients(metrics["per_task"])}
+
+
 def build_eval_step(model: Model, num_clients: int) -> Callable:
     """eval_step(params, batch) -> per-task metrics: the classifiers'
     accuracy (paper Eq. 14), {"per_task_acc": [M], "acc_mtl": mean over
     tasks}; the LMs' next-token loss, {"per_task_loss": [M], "loss": sum
-    over tasks}."""
-    M = num_clients
+    over tasks}. Under a mesh the per-task values are gathered over the
+    client group first."""
     is_classifier = _is_classifier(model.cfg)
-    towers_fwd = _towers_fn(model, M)
+    towers_fwd = _towers_fn(model)
 
-    def _chunk_eval(params, batch, c):
-        """The eval block by block (the reference's `_chunk_eval`)."""
-        terms = _chunk_eval_fn(model, c)
-        per = torch.cat([terms(tree_map(lambda x: x[sl], params["towers"]),
-                               params["server"],
-                               {k: v[sl] for k, v in batch.items()})
-                         for sl in client_axis.client_blocks(M, c)])
-        if is_classifier:
-            return {"per_task_acc": per, "acc_mtl": per.mean()}
-        return {"per_task_loss": per, "loss": per.sum()}
-
-    @torch.no_grad()
-    def eval_step(params, batch):
+    def _per_task(params, batch):
+        M = _rows(batch)
         chunk = client_axis.current_chunk()
         if chunk is not None and chunk < M and M % chunk == 0:
-            return _chunk_eval(params, batch, chunk)
+            # block by block (the reference's `_chunk_eval`)
+            terms = _chunk_eval_fn(model, chunk)
+            return torch.cat([terms(tree_map(lambda x: x[sl], params["towers"]),
+                                    params["server"],
+                                    {k: v[sl] for k, v in batch.items()})
+                              for sl in client_axis.client_blocks(M, chunk)])
         inputs = {k: v for k, v in batch.items() if k != "label"}
         smashed = towers_fwd(params["towers"], inputs)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
         logits, _ = model.server_forward(params["server"], flat)
         if not is_classifier:
-            per = _lm_loss(_at_least_f32(logits).reshape((M, -1) + tuple(logits.shape[1:])),
-                           batch["tokens"])
-            return {"per_task_loss": per, "loss": per.sum()}
+            return _lm_loss(_at_least_f32(logits).reshape((M, -1) + tuple(logits.shape[1:])),
+                            batch["tokens"])
         preds = logits.float().argmax(-1).reshape(M, -1)
-        per_task_acc = (preds == batch["label"].long()).float().mean(1)
-        return {"per_task_acc": per_task_acc, "acc_mtl": per_task_acc.mean()}
+        return (preds == batch["label"].long()).float().mean(1)
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        per = client_axis.gather_clients(_per_task(params, batch))
+        if is_classifier:
+            return {"per_task_acc": per, "acc_mtl": per.mean()}
+        return {"per_task_loss": per, "loss": per.sum()}
 
     return eval_step
 
@@ -457,7 +528,7 @@ def _chunk_eval_fn(model: Model, c: int) -> Callable:
     """per(towers_c, server, batch_c) -> [c]: one block's per-task accuracy
     (classifiers) or next-token loss (LMs)."""
     is_classifier = _is_classifier(model.cfg)
-    towers_fwd = _towers_fn(model, c)
+    towers_fwd = _towers_fn(model)
 
     def per(towers, server, batch):
         inputs = {k: v for k, v in batch.items() if k != "label"}

@@ -299,30 +299,79 @@ def broadcast_weights(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return w.reshape(tuple(w.shape) + (1,) * (x.ndim - w.ndim))
 
 
-def participation_mean(x: torch.Tensor, mask: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[M, ...] -> [...]: the mean over participating clients only,
+def participation_means(xs, mask: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None,
+                        clients: bool = True) -> list:
+    """[M, ...] tensors -> [...] means over participating clients only,
     sum(x * w) / max(sum(w), 1) with w = mask. Masked-out clients are
     ignored exactly (multiplied by 0.0 before the sum).
 
     `weights` ([M], e.g. the schedule's sizes) makes it sample-weighted:
     w = mask * weights, normalised by its largest entry first, so uniform
     weights give the unweighted mean bit for bit (w / max(w) is exactly
-    the mask)."""
+    the mask).
+
+    With `clients` (the leading axis is the client axis) the sums, the
+    weight total and the largest weight are reduced over the ambient
+    client group (core/client_axis.py: one all-reduce for the sums and the
+    total, one for the max), so a rank holding M/D clients gets the mean
+    over all M; `clients=False` averages over a replicated leading axis
+    (ParallelSFL's server replicas) locally."""
+    from repro_torch.core import client_axis
+
     w = mask
     if weights is not None:
         w = mask * weights
         wmax = w.max()
+        if clients:
+            wmax = client_axis.client_max(wmax)
         w = torch.where(wmax > 0, w / wmax, w)
-    wsum = torch.clamp(w.sum(), min=1.0)
-    return (x * broadcast_weights(w, x)).sum(0) / wsum
+    sums = [(x * broadcast_weights(w, x)).sum(0) for x in xs]
+    wsum = w.sum()
+    if clients:
+        wsum, *sums = client_axis.client_sum_([wsum, *sums])
+    wsum = torch.clamp(wsum, min=1.0)
+    return [t / wsum for t in sums]
+
+
+def participation_mean(x: torch.Tensor, mask: torch.Tensor,
+                       weights: Optional[torch.Tensor] = None,
+                       clients: bool = True) -> torch.Tensor:
+    """[M, ...] -> [...]: `participation_means` of one tensor."""
+    return participation_means([x], mask, weights, clients)[0]
 
 
 def participation_bcast_mean(x: torch.Tensor, mask: torch.Tensor,
-                             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             weights: Optional[torch.Tensor] = None,
+                             clients: bool = True) -> torch.Tensor:
     """[M, ...] -> [M, ...]: the participation mean given back to every
     client (the federation's download), as a contiguous tensor."""
-    return participation_mean(x, mask, weights)[None].expand(x.shape).contiguous()
+    return participation_mean(x, mask, weights, clients)[None].expand(
+        x.shape).contiguous()
+
+
+def participation_tree_mean(tree, mask: torch.Tensor,
+                            weights: Optional[torch.Tensor] = None,
+                            bcast: bool = False):
+    """`participation_means` of every leaf of a tree of [M, ...] client-axis
+    tensors in one reduction (one all-reduce per dtype under a mesh);
+    `bcast` gives each mean back to every client row."""
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    xs = tree_leaves(tree)
+    means = participation_means(xs, mask, weights)
+    if bcast:
+        means = [m[None].expand(x.shape).contiguous() for m, x in zip(means, xs)]
+    return tree_unflatten_like(tree, means)
+
+
+def local_schedule(schedule: Optional[ClientSchedule],
+                   rows: slice) -> Optional[ClientSchedule]:
+    """The rows `rows` of every per-client field of a schedule (a rank's
+    client block under a mesh)."""
+    if schedule is None:
+        return None
+    return ClientSchedule(*(None if f is None else f[rows] for f in schedule))
 
 
 def staleness_weights(staleness: torch.Tensor, decay: float,

@@ -63,8 +63,22 @@ and refusals:
   * `--client-chunk C` (core/client_axis.py): every round over blocks of C
     clients, each block's backward before the next; C must divide M and
     `--async` refuses it.
-
-Not ported yet: `--mesh` (refused).
+  * `--mesh data=N[,model=K[,pod=P]]` (launch/mesh.py, utils/sharding.py):
+    the client axis over N·K·P ranks, one process per mesh position: each
+    rank holds its block of M/(N·P) clients (towers, per-client optimizer
+    state, schedule rows, its rows of each round batch; a cached dataset
+    reads only its block), the rest is replicated, and the federation
+    means and server-gradient sums are all-reduces over the client group.
+    Ranks that differ only in "model" compute the same round. M must
+    divide by N·P, a `--client-chunk` must be a multiple of it, and
+    `--async` refuses a mesh. A plain launch starts the ranks itself
+    (spawned processes, a file rendezvous in a temporary directory); under
+    `torchrun --nproc-per-node N·K·P` it uses the ranks it was given. Rank
+    r runs on `cuda:(r % device_count)`, or on the CPU under
+    `--device cpu`. The backend, printed by the first rank: NCCL when
+    every rank has a card of its own, gloo when ranks share a card (NCCL
+    refuses two ranks on one card) or on the CPU. The first rank logs and
+    writes the checkpoint (the whole state, gathered).
 
 `--checkpoint PATH` saves the algorithm's state every 100 rounds and after
 the last one, in the reference's file format (train/checkpoint.py): the
@@ -75,6 +89,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import os
+import shutil
+import sys
+import tempfile
 
 import torch
 
@@ -92,10 +111,12 @@ from repro_torch.data import shards
 from repro_torch.data.lm import MultiTaskLMSource
 from repro_torch.data.pipeline import client_batches
 from repro_torch.data.synthetic import MultiTaskImageSource
+from repro_torch.launch.mesh import make_mesh_from_spec, mesh_size, parse_mesh_spec
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.train.loop import TrainConfig, train
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.sharding import client_group
 
 # scalar HParams fields settable via --hp key=value
 _HP_FIELDS = {
@@ -170,6 +191,62 @@ def _cached_dataset(args, src, M, is_classifier):
             f"--seq-len {seq} exceeds the cached sequence length "
             f"{ds.seq_len} at {args.cache_dir!r}")
     return ds
+
+
+def pick_backend(device_type: str, world: int) -> tuple:
+    """(backend, why) for `world` ranks on `device_type`: NCCL when every
+    rank has a card of its own; gloo when ranks share a card (NCCL refuses
+    two ranks on one card; on CUDA tensors gloo carries all_reduce and
+    broadcast, and the port's gathers go through the host) or on the
+    CPU."""
+    if device_type != "cuda":
+        return "gloo", "on the CPU"
+    cards = torch.cuda.device_count()
+    if world <= cards:
+        return "nccl", f"{world} rank(s) on {cards} card(s), one each"
+    return "gloo", f"{world} ranks share {cards} card(s)"
+
+
+def init_distributed(device_type: str, rank: int, world: int,
+                     init_method: str = "env://") -> str:
+    """Join the world as `rank` of `world` over pick_backend's backend (on
+    the card, rank r uses cuda:(r % device_count)). Returns "<world>
+    rank(s) over <backend> (<why>)"."""
+    import torch.distributed as dist
+
+    backend, why = pick_backend(device_type, world)
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    return f"{world} rank(s) over {backend} ({why})"
+
+
+def _rank_main(rank: int, argv, world: int, init_method: str, device_type: str):
+    """One spawned rank: join the world, run the launcher, leave."""
+    import torch.distributed as dist
+
+    init_distributed(device_type, rank, world, init_method)
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(argv, world: int, device_type: str) -> None:
+    """Run `main(argv)` on `world` spawned ranks (a file rendezvous in a
+    temporary directory, removed after), and wait for them."""
+    import torch.multiprocessing as mp
+
+    folder = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    try:
+        mp.start_processes(_rank_main, args=(argv, world,
+                                             f"file://{folder}/rendezvous",
+                                             device_type),
+                           nprocs=world, start_method="spawn")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
 
 
 def main(argv=None):
@@ -257,8 +334,10 @@ def main(argv=None):
     ap.add_argument("--server-lr-scale", type=float, default=None)
     ap.add_argument("--optimizer", default=None, choices=[None, "sgd", "adamw"])
     ap.add_argument("--mesh", default=None, metavar="data=N[,model=K[,pod=P]]",
-                    help="shard the client axis over a device mesh: not "
-                         "ported yet, refused")
+                    help="shard the client axis over a mesh of ranks "
+                         "(launch/mesh.py): client leaves split over the "
+                         "pod x data ranks, the rest replicated; starts "
+                         "the ranks itself unless run under torchrun")
     ap.add_argument("--client-chunk", type=int, default=None,
                     help="client-block size: rounds process the client axis "
                          "in blocks of this many clients (each block's "
@@ -314,25 +393,54 @@ def main(argv=None):
         cfg = cfg.with_updates(num_clients=args.num_clients)
     M = cfg.num_clients
     # refuse before paying for the model build or data synthesis
-    if args.mesh:
-        raise SystemExit("--mesh is not ported yet: the port trains on one "
-                         "device (see --client-chunk for large M)")
     if args.client_chunk is not None and M % args.client_chunk != 0:
         raise SystemExit(
             f"--client-chunk {args.client_chunk} must divide the client "
             f"count: {M} % {args.client_chunk} != 0 (pick a chunk that "
             f"divides num-clients, or adjust --num-clients)")
-    if args.async_mode and args.client_chunk is not None:
+    if args.mesh:
+        try:
+            sizes = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+        shards = sizes.get("pod", 1) * sizes.get("data", 1)
+        if shards > 1 and M % shards != 0:
+            raise SystemExit(
+                f"--mesh {args.mesh!r} shards the client axis {shards} "
+                f"ways, which must divide the client count: {M} % {shards} "
+                f"!= 0 (adjust --num-clients or the data/pod axis sizes)")
+    if args.async_mode and (args.mesh or args.client_chunk is not None):
         raise SystemExit(
             "--async is incompatible with --mesh/--client-chunk: the event "
             "engine dispatches host-driven cohorts, not one sharded round "
             "program")
+    mesh = group = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+                spawn_ranks(sys.argv[1:] if argv is None else list(argv),
+                            mesh_size(args.mesh), dev.type)
+                return None
+            # under torchrun: the ranks it was given
+            init_distributed(dev.type, int(os.environ["RANK"]),
+                             int(os.environ["WORLD_SIZE"]))
+        mesh = make_mesh_from_spec(args.mesh, device_type=dev.type)
+        group = client_group(mesh)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dist.get_rank() == 0:
+            world = dist.get_world_size()
+            print(f"mesh {args.mesh}: {world} rank(s) over {dist.get_backend()} "
+                  f"({pick_backend(dev.type, world)[1]})", flush=True)
+    first = group is None or dist.get_rank() == 0
     model = build_model(cfg)
 
     opt_name = args.optimizer or ("sgd" if is_classifier else "adamw")
     opt = sgd(args.lr) if opt_name == "sgd" else adamw(args.lr)
     alg = get_algorithm(args.algorithm)
-    if not alg.uses_optimizer and opt_name != "sgd":
+    if not alg.uses_optimizer and opt_name != "sgd" and first:
         print(f"note: {args.algorithm!r} runs the papers' plain local SGD at "
               f"--lr; --optimizer {opt_name} is ignored")
     scfg = ScheduleConfig(
@@ -347,7 +455,8 @@ def main(argv=None):
                       ("--num-clusters", "num_clusters")):
         val = getattr(args, key)
         if val is not None:
-            print(f"note: {flag} is deprecated; use --hp {key}={val}")
+            if first:
+                print(f"note: {flag} is deprecated; use --hp {key}={val}")
             hp_overrides.setdefault(key, val)
     topo = None
     if args.topology is not None:
@@ -378,8 +487,15 @@ def main(argv=None):
     seq = None if is_classifier else args.seq_len
     if args.data == "cached":
         # cached shard READS replace per-round synthesis on the prefetch
-        # thread (data/shards.py); the cache is built once on first use
-        ds = _cached_dataset(args, src, M, is_classifier)
+        # thread (data/shards.py); the cache is built once on first use (by
+        # the first rank under a mesh; each rank then reads its block)
+        if first:
+            ds = _cached_dataset(args, src, M, is_classifier)
+        if group is not None:
+            dist.barrier()
+            if not first:
+                ds = _cached_dataset(args, src, M, is_classifier)
+            ds = ds.block(group.index, group.size)
         batches = client_batches(ds, per_round_batch, steps=rounds, seq_len=seq,
                                  seed=args.seed)
     else:
@@ -391,15 +507,17 @@ def main(argv=None):
                        local_steps=args.local_steps, seed=args.seed,
                        hp_overrides=hp_overrides, schedule=scfg,
                        batch_per_client=args.batch_per_client, topology=topo,
-                       device=args.device, checkpoint_path=args.checkpoint,
+                       device=str(dev), checkpoint_path=args.checkpoint,
                        checkpoint_every=100 if args.checkpoint else 0,
                        prefetch=args.prefetch,
                        time_per_sample_s=args.sim_ms_per_sample * 1e-3,
                        client_chunk=args.client_chunk,
                        async_mode=args.async_mode,
                        staleness_decay=args.staleness_decay,
-                       max_staleness=args.max_staleness)
+                       max_staleness=args.max_staleness, mesh=mesh)
     state, history = train(model, opt, batches, tcfg, M, component_lr=clr)
+    if not first:
+        return state, history
     print(f"final loss: {history[-1]['loss']:.4f}")
     if history and (topo is not None or args.async_mode):
         t = topo.name if topo is not None else "star"

@@ -126,6 +126,26 @@ def _dispatch(p, ht, cfg: ModelConfig, C: int):
     return y, aux
 
 
+def rank_moe_groups(cfg: ModelConfig, shards: int) -> int:
+    """The dispatch groups a rank holding 1/`shards` of the client axis
+    takes for its own tokens, so that its groups are exactly the dense
+    round's groups over its rows: cfg.moe_groups / shards. Expert capacity
+    is computed per group, so a cfg.moe_groups that is not a multiple of
+    the shard count (moe_groups = 1 above all: one group over every
+    client's tokens) has no such split, and the rank would drop other
+    tokens than the dense round: refused."""
+    if not cfg.num_experts or shards == 1:
+        return cfg.moe_groups
+    if cfg.moe_groups % shards:
+        raise ValueError(
+            f"moe_groups={cfg.moe_groups} is not a multiple of the mesh's "
+            f"client-shard count {shards}: expert capacity is computed per "
+            "dispatch group, so a rank routing only its own clients' tokens "
+            "would drop other tokens than the unsharded round (set "
+            f"moe_groups to a multiple of {shards})")
+    return cfg.moe_groups // shards
+
+
 def moe_forward(p, x, cfg: ModelConfig, groups: Optional[int] = None):
     """x: [..., S, d] -> (y, aux_loss). Flattens leading dims into tokens.
 

@@ -10,3 +10,4 @@ from repro_torch.optim.per_component import (
     per_component_lr,
     lipschitz_lr,
 )
+from repro_torch.optim.schedules import constant, cosine, warmup_cosine, inverse_sqrt

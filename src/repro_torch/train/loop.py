@@ -50,7 +50,23 @@ at that absolute round; `batches` yields the remaining round batches),
 its "sim_time" as `start_sim_time` and, in async mode, its "events" as
 `init_events`.
 
-Mesh sharding (`TrainConfig.mesh`) is not ported yet and is refused.
+The client axis over devices (`TrainConfig.mesh`, a DeviceMesh from
+`launch.mesh.make_mesh_from_spec`; one process per mesh position): each
+rank builds the state from the seed (or takes `init_state`) and keeps its
+block of M/D clients (`place_algorithm_state`; the replicated leaves are
+broadcast from the mesh's first rank), runs every round through
+`shard_round_fn(mesh=)` and stages only its clients' rows of each round
+batch through the same prefetch path (a batch of all M rows is cut to the
+rank's on the prefetch thread, before it is pinned; a batch of the rank's
+rows, such as a cached dataset's `block(rank, D)` reads, passes). Every
+rank draws the same seeded schedule stream and gets the global metrics;
+history and the log lines come from the mesh's first rank, with the
+global loss, participants and sim_time; eval metrics are gathered over
+the client group. A checkpoint is the whole state, gathered
+(`gather_algorithm_state`) and written by the first rank in the same file
+format as an unsharded run's, so either kind of run resumes from the
+other's file. `train` returns this rank's part of the state. The async
+engine refuses a mesh, as the reference's.
 """
 from __future__ import annotations
 
@@ -62,8 +78,12 @@ from typing import Callable, Optional
 from repro_torch.core import comm_cost
 from repro_torch.core.algorithms import (
     HParams,
+    client_rows,
+    gather_algorithm_state,
     get_algorithm,
+    mesh_model,
     num_rounds,
+    place_algorithm_state,
     shard_round_fn,
     simulate_round_walltime,
 )
@@ -82,8 +102,7 @@ from repro_torch.train.checkpoint import save_algorithm_state
 from repro_torch.train.events import EventEngine
 from repro_torch.train.pipeline import MetricsRing, host_batch, pipeline_rounds
 from repro_torch.utils.device import generator, resolve_device
-
-_NOT_PORTED = ("mesh",)
+from repro_torch.utils.sharding import client_group, mesh_axis_sizes, mesh_group, mesh_ranks
 
 
 @dataclass
@@ -123,14 +142,16 @@ class TrainConfig:
     # staleness-aware event engine instead of the round barrier. Each
     # dispatch consumes one round batch and one schedule draw, so `steps`
     # bounds the same total work; history counts server APPLY events.
-    # Incompatible with client_chunk
+    # Incompatible with mesh / client_chunk
     async_mode: bool = False
     # FedAsync staleness decay: an update dispatched s applies ago merges
     # with weight decay**s. 1.0 = no down-weighting
     staleness_decay: float = 1.0
     # drop updates staler than this many applies (None = keep all)
     max_staleness: Optional[int] = None
-    # not ported yet: setting it raises
+    # the client axis over devices: a DeviceMesh (launch/mesh.py) whose
+    # client axes (("pod","data")) split every leading-client-axis leaf
+    # (see the module docstring). None = one device
     mesh: Optional[object] = None
 
 
@@ -164,12 +185,11 @@ def train(
     The state is built on `tcfg.device` from `tcfg.seed` unless
     `init_state` is given; `init_state`, `start_round`, `init_events`
     and `start_sim_time` resume a checkpointed run (see the module
-    docstring)."""
-    for name in _NOT_PORTED:
-        if getattr(tcfg, name):
-            raise NotImplementedError(
-                f"TrainConfig.{name} is not ported yet: the port's loop runs "
-                "on one device")
+    docstring). Under a mesh every rank of the mesh calls it and gets back
+    its own part of the state and the same history."""
+    mesh = tcfg.mesh
+    if mesh is not None:
+        mesh_axis_sizes(mesh)  # a TypeError for anything but a mesh
     alg = get_algorithm(tcfg.algorithm)
     scfg = tcfg.schedule or ScheduleConfig()
     if scfg.capability_batching and tcfg.batch_per_client is None:
@@ -195,17 +215,29 @@ def train(
     state = (alg.init_state(model, generator(device, tcfg.seed), num_clients, hp)
              if init_state is None else init_state)
     if tcfg.async_mode:
-        if tcfg.client_chunk is not None:
+        if mesh is not None or tcfg.client_chunk is not None:
             raise ValueError(
-                "async_mode is incompatible with client_chunk: the event "
-                "engine dispatches host-driven cohorts, not one chunked "
-                "round program")
+                "async_mode is incompatible with mesh/client_chunk: the "
+                "event engine dispatches host-driven cohorts, not a single "
+                "sharded round program")
         return _train_async(model, tcfg, num_clients, alg, hp, scfg, cap, spr,
                             rounds, state, batches, eval_batches, log,
                             init_events, device)
-    round_fn = shard_round_fn(alg, model, num_clients, hp,
+    group = rows = None
+    if mesh is not None:
+        import torch.distributed as dist
+
+        group = client_group(mesh)
+        rows = group.rows(num_clients)
+        state = place_algorithm_state(alg, state, mesh, device)
+        # this rank's rows of each round batch, cut on the prefetch thread
+        batches = (client_rows(b, num_clients, rows) for b in batches)
+        if dist.get_rank() != mesh_ranks(mesh)[0]:
+            log = lambda _: None  # noqa: E731 — the first rank logs
+    round_fn = shard_round_fn(alg, model, num_clients, hp, mesh=mesh,
                               client_chunk=tcfg.client_chunk)
-    eval_fn = _eval_fn(alg, model, num_clients, tcfg) if eval_batches else None
+    eval_fn = (_eval_fn(alg, model, num_clients, tcfg, group)
+               if eval_batches else None)
     # ONE cycling iterator for the whole run (a list is rotated through);
     # a resumed run skips the evals the interrupted one consumed
     eval_iter = itertools.cycle(eval_batches) if eval_fn is not None else None
@@ -238,8 +270,17 @@ def train(
         extra = {"step": r * spr, "round": r}
         if round_sim_s is not None:
             extra["sim_time"] = sim_time
-        save_algorithm_state(tcfg.checkpoint_path, alg, state, extra=extra,
-                             cfg=model.cfg)
+        if mesh is None:
+            save_algorithm_state(tcfg.checkpoint_path, alg, state, extra=extra,
+                                 cfg=model.cfg)
+            return
+        import torch.distributed as dist
+
+        whole = gather_algorithm_state(alg, state, mesh)
+        if dist.get_rank() == mesh_ranks(mesh)[0]:
+            save_algorithm_state(tcfg.checkpoint_path, alg, whole, extra=extra,
+                                 cfg=model.cfg)
+        dist.barrier(group=mesh_group(mesh))  # the file is there for every rank
 
     history = []
 
@@ -286,7 +327,10 @@ def train(
             if round_sim_s is not None:
                 payload["sim_time"] = sim_time
             if do_eval:
-                payload["eval"] = eval_fn(state, stage_batch(next(eval_iter), device))
+                eb = next(eval_iter)
+                if rows is not None:
+                    eb = client_rows(eb, num_clients, rows)
+                payload["eval"] = eval_fn(state, stage_batch(eb, device))
             ring.push(payload)
         if (tcfg.checkpoint_path and tcfg.checkpoint_every
                 and r % tcfg.checkpoint_every == 0):
@@ -298,17 +342,19 @@ def train(
     return state, history
 
 
-def _eval_fn(alg, model, num_clients: int, tcfg: TrainConfig):
-    """The algorithm's eval, under the run's client chunk."""
-    ev = alg.eval_fn(model, num_clients)
-    if tcfg.client_chunk is None:
-        return ev
+def _eval_fn(alg, model, num_clients: int, tcfg: TrainConfig, group=None):
+    """The algorithm's eval, under the run's client chunk and, on a mesh,
+    its client group (this rank's clients; the metrics gathered)."""
+    if group is None and tcfg.client_chunk is None:
+        return alg.eval_fn(model, num_clients)
+    ev = alg.eval_fn(model if group is None else mesh_model(model, group.size),
+                     num_clients)
 
-    def chunked(state, batch):
-        with client_axis(chunk=tcfg.client_chunk):
+    def scoped(state, batch):
+        with client_axis(chunk=tcfg.client_chunk, group=group):
             return ev(state, batch)
 
-    return chunked
+    return scoped
 
 
 def _train_async(model, tcfg, num_clients, alg, hp, scfg, cap, spr, rounds,

@@ -129,14 +129,15 @@ def test_hp_flags_and_refusals():
         "sample_weighted": True, "prox_mu": 0.5, "num_clusters": 3}
     with pytest.raises(SystemExit):
         parse_hp_overrides(["sample_weighted=maybe"])
-    # the refusals that stay: --mesh, a chunk that does not divide M
-    # (smoke M = 3), and --async with --client-chunk, as the reference's
+    # the refusals that stay: a malformed --mesh spec, a chunk that does
+    # not divide M (smoke M = 3), and --async with --client-chunk, as the
+    # reference's (tests/test_torch_mesh_launch.py runs a real --mesh)
     for flags in (["--mesh", "2"], ["--client-chunk", "2"],
                   ["--async", "--client-chunk", "1"]):
         with pytest.raises(SystemExit):
             main(["--device", "cpu", "--smoke", *flags])
     cfg = get_config("paper-mlp", smoke=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="not a mesh"):
         train(build_model(cfg), sgd(0.1), iter(()),
               TrainConfig(device="cpu", mesh=1), 3)
     with pytest.raises(ValueError, match="async_mode is incompatible"):

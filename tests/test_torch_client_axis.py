@@ -48,7 +48,9 @@ def test_client_axis_validation():
             list(client_blocks(8))
     with pytest.raises(ValueError, match="divisible"):
         shard_round_fn(get_algorithm("mtsl"), MODEL, 6, HParams(), client_chunk=4)
-    with pytest.raises(NotImplementedError):
+    # a mesh is a DeviceMesh with named dims (tests/test_torch_mesh_round.py
+    # runs the sharded rounds): anything else is refused
+    with pytest.raises(TypeError, match="not a mesh"):
         shard_round_fn(get_algorithm("mtsl"), MODEL, 4, HParams(), mesh=object())
 
 

@@ -132,8 +132,8 @@ def test_cluster_assignment_and_means_match_reference():
         np.testing.assert_array_equal(cidx, cidx_j)
         x = rng.normal(size=(Mc, 4, 2)).astype(np.float32)
         w = (rng.random(Mc) < 0.7).astype(np.float32)
-        got, wc = federation._cluster_wmean(
-            torch.tensor(x), torch.tensor(w),
+        (got,), wc = federation._cluster_wmean(
+            [torch.tensor(x)], torch.tensor(w),
             federation._cluster_onehot(torch.as_tensor(cidx), n))
         want, wc_j = jax_fed._cluster_wmean(jnp.asarray(x), jnp.asarray(w),
                                             jnp.asarray(cidx), n_j)

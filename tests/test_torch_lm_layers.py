@@ -12,8 +12,15 @@ and block. Tolerances: outputs within 1e-5 (f32, reduction order and
 transcendental ulps); gradients within 1e-4 of each leaf's largest
 gradient (the split model's gradients reach 1e3, summed over thousands of
 terms).
+
+The reference's side of every case (its params, inputs, outputs and
+gradients, as numpy) is one `functools.lru_cache`d function per case
+kind; the module's `references` fixture fills every entry at once in
+threads, so XLA compiles the cases' programs in parallel, and each test
+reads its entry.
 """
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -67,10 +74,25 @@ def _port(tree_j, cfg):
                     convert_tree(jax.tree.map(np.asarray, tree_j), "cpu", cfg))
 
 
-def _grads_match(fn_j, pj, fn_t, pt, x, g):
-    """Gradients of sum(f(p, x) * g) with respect to the params and x."""
-    want = jax.grad(lambda p, x: jnp.sum(fn_j(p, x) * g), argnums=(0, 1))(
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _reference_case(fn_j, pj, x, g):
+    """The reference's side of a layer case, as numpy: (params, x, g, f(p,
+    x), the gradients of sum(f(p, x) * g) with respect to the params and
+    x)."""
+    def loss(p, x):
+        out = fn_j(p, x)
+        return jnp.sum(out * g), out
+
+    (_, out), want = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
         pj, jnp.asarray(x))
+    return _numpy(pj), x, g, np.asarray(out), _numpy(want)
+
+
+def _grads_match(want, fn_t, pt, x, g):
+    """Gradients of sum(f(p, x) * g) with respect to the params and x."""
     xt = torch.tensor(x, requires_grad=True)
     (fn_t(pt, xt) * torch.tensor(g)).sum().backward()
     _grad_close(xt.grad, want[1])
@@ -79,20 +101,28 @@ def _grads_match(fn_j, pj, fn_t, pt, x, g):
         _grad_close(leaf.grad, flat[path])
 
 
-@pytest.mark.parametrize("arch,window", [("gemma3-12b", 0), ("gemma3-12b", 16),
-                                         ("zamba2-7b", 0)])
-def test_attn_forward(arch, window):
+ATTN_CASES = [("gemma3-12b", 0), ("gemma3-12b", 16), ("zamba2-7b", 0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _attn_reference(arch, window):
     cfg_j, cfg = _cfgs(arch)
     pj = strip(JL.attn_params(jax.random.PRNGKey(3), cfg_j))
-    pt = _port(pj, cfg)
     rng = np.random.default_rng(1)
     x = _rand(rng, 2, 37, cfg.d_model)
     g = _rand(rng, 2, 37, cfg.d_model)
     fn_j = jax.jit(functools.partial(JL.attn_forward, cfg=cfg_j, window=window))
-    _close(TL.attn_forward(pt, torch.tensor(x), cfg, window=window),
-           fn_j(pj, jnp.asarray(x)))
-    _grads_match(fn_j, pj,
-                 lambda p, x: TL.attn_forward(p, x, cfg, window=window), pt, x, g)
+    return _reference_case(fn_j, pj, x, g)
+
+
+@pytest.mark.parametrize("arch,window", ATTN_CASES)
+def test_attn_forward(arch, window, references):
+    _, cfg = _cfgs(arch)
+    pj, x, g, out_j, want = _attn_reference(arch, window)
+    pt = _port(pj, cfg)
+    _close(TL.attn_forward(pt, torch.tensor(x), cfg, window=window), out_j)
+    _grads_match(want, lambda p, x: TL.attn_forward(p, x, cfg, window=window),
+                 pt, x, g)
 
 
 def test_causal_conv_and_gated_norm():
@@ -108,11 +138,11 @@ def test_causal_conv_and_gated_norm():
     _close(TS.softplus(torch.tensor(a)), jax.nn.softplus(jnp.asarray(a)))
 
 
-@pytest.mark.parametrize("arch,L", [("mamba2-130m", 37), ("zamba2-7b", 32),
-                                    ("zamba2-7b", 21)])
-def test_mamba_forward(arch, L):
-    """L = 37 and 21 are not multiples of the smoke chunk (16): the pad-to-
-    chunk step runs."""
+MAMBA_CASES = [("mamba2-130m", 37), ("zamba2-7b", 32), ("zamba2-7b", 21)]
+
+
+@functools.lru_cache(maxsize=None)
+def _mamba_reference(arch, L):
     cfg_j, cfg = _cfgs(arch)
     pj = strip(JS.mamba_params(jax.random.PRNGKey(4), cfg_j))
     # nonzero A_log / dt_bias / D so that every leaf is exercised
@@ -121,25 +151,32 @@ def test_mamba_forward(arch, L):
     pj = dict(pj, A_log=jnp.asarray(_rand(rng, H)) * 0.5,
               dt_bias=jnp.asarray(_rand(rng, H)) * 0.5,
               D=1.0 + 0.1 * jnp.asarray(_rand(rng, H)))
-    pt = _port(pj, cfg)
-    for k in ("A_log", "D", "dt_bias"):
-        assert pt[k].dtype == torch.float32
     x = _rand(rng, 2, L, cfg.d_model)
     g = _rand(rng, 2, L, cfg.d_model)
     fn_j = jax.jit(functools.partial(JS.mamba_forward, cfg=cfg_j))
-    _close(TS.mamba_forward(pt, torch.tensor(x), cfg), fn_j(pj, jnp.asarray(x)))
-    _grads_match(fn_j, pj, lambda p, x: TS.mamba_forward(p, x, cfg), pt, x, g)
+    return _reference_case(fn_j, pj, x, g)
 
 
-def test_shared_attn_block():
-    """The zamba2 layer: the stack-level shared attention+MLP block from
-    ctx["shared"], then the layer's own mamba."""
+@pytest.mark.parametrize("arch,L", MAMBA_CASES)
+def test_mamba_forward(arch, L, references):
+    """L = 37 and 21 are not multiples of the smoke chunk (16): the pad-to-
+    chunk step runs."""
+    _, cfg = _cfgs(arch)
+    pj, x, g, out_j, want = _mamba_reference(arch, L)
+    pt = _port(pj, cfg)
+    for k in ("A_log", "D", "dt_bias"):
+        assert pt[k].dtype == torch.float32
+    _close(TS.mamba_forward(pt, torch.tensor(x), cfg), out_j)
+    _grads_match(want, lambda p, x: TS.mamba_forward(p, x, cfg), pt, x, g)
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_attn_reference():
     cfg_j, cfg = _cfgs("zamba2-7b")
     k1, k2, k3 = jax.random.split(jax.random.PRNGKey(6), 3)
     shared_j = strip({"attn": JL.attn_params(k1, cfg_j), "mlp": JL.mlp_params(k2, cfg_j)})
     blk_j = JST.make_block(cfg_j, "shared_attn")
     pj = strip(blk_j.init(k3))
-    shared, pt = _port(shared_j, cfg), _port(pj, cfg)
     rng = np.random.default_rng(7)
     x = _rand(rng, 2, 19, cfg.d_model)
     g = _rand(rng, 2, 19, cfg.d_model)
@@ -147,13 +184,22 @@ def test_shared_attn_block():
     def fn_j(p, x):
         return blk_j.forward(p["layer"], x, {"shared": p["shared"]})[0]
 
+    return _reference_case(jax.jit(fn_j), {"layer": pj, "shared": shared_j}, x, g)
+
+
+def test_shared_attn_block(references):
+    """The zamba2 layer: the stack-level shared attention+MLP block from
+    ctx["shared"], then the layer's own mamba."""
+    _, cfg = _cfgs("zamba2-7b")
+    both_j, x, g, out_j, want = _shared_attn_reference()
+    both_t = {"layer": _port(both_j["layer"], cfg), "shared": _port(both_j["shared"], cfg)}
+
     def fn_t(p, x):
         return TST.make_block(cfg, "shared_attn").forward(
             p["layer"], x, {"shared": p["shared"]})[0]
 
-    both_j, both_t = {"layer": pj, "shared": shared_j}, {"layer": pt, "shared": shared}
-    _close(fn_t(both_t, torch.tensor(x)), jax.jit(fn_j)(both_j, jnp.asarray(x)))
-    _grads_match(jax.jit(fn_j), both_j, fn_t, both_t, x, g)
+    _close(fn_t(both_t, torch.tensor(x)), out_j)
+    _grads_match(want, fn_t, both_t, x, g)
 
 
 VARIANTS = {  # (arch, config updates)
@@ -171,22 +217,13 @@ VARIANTS = {  # (arch, config updates)
 }
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
-def test_split_model_forward_and_gradients(variant):
-    """tower_forward then server_forward of the split model (one client's
-    tower), logits and the gradients of sum(logits * g) with respect to
-    every parameter of the tower and the server."""
+@functools.lru_cache(maxsize=None)
+def _split_reference(variant):
+    """The reference's split model of `variant`: (params, tokens, g,
+    logits, gradients of sum(logits * g)), as numpy."""
     arch, kw = VARIANTS[variant]
     cfg_j, cfg = _cfgs(arch, **kw)
-    model_j, model = jax_build_model(cfg_j), build_model(cfg)
-    rng_j = jax.random.PRNGKey(8)
-    params_j = jax.jit(lambda r: strip({
-        "towers": jax_stack_towers(model_j.init_tower, r, 1),
-        "server": model_j.init_server(jax.random.fold_in(r, 1))}))(rng_j)
-    params = tree_map(lambda x: x.requires_grad_(),
-                      params_from_jax(jax.tree.map(np.asarray, params_j), "cpu", cfg))
-    if kw.get("scan_layers"):
-        assert any(isinstance(v, list) for v in params["server"]["blocks"].values())
+    model_j = jax_build_model(cfg_j)
     rng = np.random.default_rng(9)
     toks = rng.integers(0, cfg.vocab_size, size=(2, 21))
     g = _rand(rng, 2, 21, cfg.vocab_size)
@@ -197,14 +234,49 @@ def test_split_model_forward_and_gradients(variant):
         logits, _ = model_j.server_forward(p["server"], h)
         return jnp.sum(logits * g), logits
 
-    (_, logits_j), grads_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(params_j)
+    @jax.jit
+    def init_and_grads(r):
+        # one program: the init, then the logits and gradients at it
+        p = strip({"towers": jax_stack_towers(model_j.init_tower, r, 1),
+                   "server": model_j.init_server(jax.random.fold_in(r, 1))})
+        (_, logits), grads = jax.value_and_grad(loss_j, has_aux=True)(p)
+        return p, logits, grads
+
+    params_j, logits_j, grads_j = init_and_grads(jax.random.PRNGKey(8))
+    return _numpy(params_j), toks, g, np.asarray(logits_j), _numpy(grads_j)
+
+
+@pytest.fixture(scope="module")
+def references():
+    """Every case's reference side, computed once, in threads."""
+    jobs = ([functools.partial(_attn_reference, *c) for c in ATTN_CASES]
+            + [functools.partial(_mamba_reference, *c) for c in MAMBA_CASES]
+            + [_shared_attn_reference]
+            + [functools.partial(_split_reference, v) for v in VARIANTS])
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        for fut in [ex.submit(job) for job in jobs]:
+            fut.result()
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_split_model_forward_and_gradients(variant, references):
+    """tower_forward then server_forward of the split model (one client's
+    tower), logits and the gradients of sum(logits * g) with respect to
+    every parameter of the tower and the server."""
+    arch, kw = VARIANTS[variant]
+    _, cfg = _cfgs(arch, **kw)
+    model = build_model(cfg)
+    params_j, toks, g, logits_j, grads_j = _split_reference(variant)
+    params = tree_map(lambda x: x.requires_grad_(), params_from_jax(params_j, "cpu", cfg))
+    if kw.get("scan_layers"):
+        assert any(isinstance(v, list) for v in params["server"]["blocks"].values())
     h = model.tower_forward(client_view(params["towers"], 0),
                             {"tokens": torch.tensor(toks)})
     logits, aux = model.server_forward(params["server"], h)
     assert logits.dtype == torch.float32 and float(aux) == 0.0
     _close(logits, logits_j)
     (logits * torch.tensor(g)).sum().backward()
-    want = params_from_jax(jax.tree.map(np.asarray, grads_j), "cpu", cfg)
+    want = params_from_jax(grads_j, "cpu", cfg)
     for a, b in zip(tree_leaves(params), tree_leaves(want)):
         _grad_close(a.grad, b.numpy())
 

@@ -11,8 +11,8 @@ of every flag reach the same TrainConfig fields (and topology
 vectorized, cached and Dirichlet-cached; the port builds its cache on
 first use, and the reference reads that cache). The refusals give the
 reference's messages: a chunk that does not divide M, `--async` with
-`--client-chunk`, `--data cached` without `--cache-dir`; `--mesh` stays
-refused.
+`--client-chunk`, `--data cached` without `--cache-dir`, and a `--mesh`
+whose client-shard count does not divide M.
 """
 import numpy as np
 import pytest
@@ -101,5 +101,11 @@ def test_refusals_match_reference(argv, match, monkeypatch):
         _capture(module, monkeypatch)
         with pytest.raises(SystemExit, match=match):
             module.main(base + argv)
-    with pytest.raises(SystemExit, match="not ported"):
-        launch.main(["--smoke", "--device", "cpu", "--mesh", "data=2"])
+    # --mesh is ported: on the smoke config (M = 3) a data=2 mesh is
+    # refused with the reference's divisibility message
+    # (tests/test_torch_mesh_launch.py runs a real --mesh)
+    for module, base in ((jax_launch, ["--smoke"]),
+                         (launch, ["--smoke", "--device", "cpu"])):
+        _capture(module, monkeypatch)
+        with pytest.raises(SystemExit, match="which must divide the client count: 3 % 2"):
+            module.main(base + ["--mesh", "data=2"])
