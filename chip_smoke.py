@@ -50,7 +50,9 @@ Phases, each of which must pass (any failure exits non-zero):
           request's tokens, finite logits, the captures, and that every
           decode attention launched K4: K4's launches as counted on the
           card == attn_decode calls == (6 M + 42) per decode step, and
-          the plain decode ran 0 times on the card.
+          the plain decode ran 0 times on the card. The dry-run of the
+          decode program (launch/dryrun.py on the meta device, M = 2)
+          must launch K4 the same (6 M + 42) times a step.
   parity  full width, one 6-layer pattern unit in the tower and one in the
           server, f32 with TF32 off: greedy output of the continuous
           engine equals generate_sequential's token for token.
@@ -64,9 +66,8 @@ Phases, each of which must pass (any failure exits non-zero):
           parameter update went through K1 in one launch a round: leaves
           updated == leaves x rounds (17 x 200, 8 x 200) and multi-tensor
           launches == rounds, with no per-leaf launch and the plain update
-          run 0 times on the card. Reports rounds/s, samples/s, peak memory, acc_mtl on a
-          held-out batch, and a torch.profiler pass over 20 more resnet
-          rounds (device vs wall ms per round, K1's share, top kernels).
+          run 0 times on the card. Reports rounds/s, samples/s, peak memory
+          and acc_mtl on a held-out batch.
   tparity full paper-resnet16, M = 10, b = 8, TF32 off, participation
           0.5, the card (K1, cuDNN) against the CPU (plain version) from
           one initial tree and the same batches. Round-1 gradients per
@@ -133,19 +134,19 @@ Phases, each of which must pass (any failure exits non-zero):
           layers) of each kind, every K3 launch on the tensor-core path, no
           plain K2 / K3 forward on the card, and K1 once a round over every
           leaf (launches == rounds, leaves updated == leaves x rounds).
-          Reports s per round, peak memory, and a torch.profiler pass over
-          one more round (device busy share, top kernels). Then, with the
+          Reports s per round and peak memory (the profiled round that
+          followed went with the dryrun phase's time: PERF.md §5 keeps its
+          last reading). Then, with the
           model freed, K1 against its plain version on every leaf shape of
           the trained tree at full width (7.26 B elements, random p and g),
           in batches of up to 2^30 elements, each one multi-tensor launch
           over many leaves: bit-equal.
   lm-learn  mamba2-130m at its full config, M = 4, b = 4, S = 256, adamw at
-          lr 3e-3 (the LM example's), 50 rounds on a 4096-token
+          lr 3e-3 (the LM example's), 30 rounds on a 4096-token
           MultiTaskLMSource: the loss must fall, and every K3 launch takes
           the tensor-core path; reports each task's
-          held-out loss beside its chain's entropy floor, the host time to
-          draw one round's tokens, and a torch.profiler pass over one more
-          round.
+          held-out loss beside its chain's entropy floor and the host time
+          to draw one round's tokens.
   lm-parity  the smoke zamba2-7b and mamba2-130m rounds (f32, SGD lr 0.1,
           masked participation), 3 rounds on the card (K2, K3, K1) against
           the CPU (plain versions) from one initial tree and one batch
@@ -156,10 +157,15 @@ Phases, each of which must pass (any failure exits non-zero):
           reported).
   baselines  the paper's six federated baselines (fedavg, fedprox,
           splitfed, smofi, parallelsfl, fedem) on full paper-resnet16, M =
-          10, b = 8, lr 0.1, local_steps 30, 15 rounds (450 gradient steps,
-          the reference's Table 2 setting for the baselines on resnet,
-          benchmarks/table2_accuracy.py), each through train/loop.py::train
-          and the registry. Checks finite logged losses and that every
+          10, b = 8, local_steps 30 (the reference's Table 2 setting for
+          the baselines on resnet, benchmarks/table2_accuracy.py), 10
+          rounds (300 gradient steps), at lr 0.01 (at the table's 0.1 both
+          packages overflow by chance, ROADMAP queue 3 facts), each through
+          train/loop.py::train and the registry. Checks finite logged
+          losses, that each loss falls (the median of the last five rounds'
+          below the first round's; FedEM, whose round loss is 0 as the
+          reference's, by its mixture NLL on the first round's batch
+          against its initial state's), and that every
           local SGD step went through K1 in one launch: multi-tensor
           launches == local steps x rounds, leaves updated == 17 x that, no
           per-leaf launch and the plain update run 0 times on the card.
@@ -169,15 +175,11 @@ Phases, each of which must pass (any failure exits non-zero):
           each parameter after, kept on the card: a few launches a step)
           and the message names the leaf, the round and the local step.
           The probe's host seconds are left out of the times (the rounds
-          are host-bound), and fedavg runs 6 more rounds without it to
-          read its cost directly.
+          are host-bound).
           Reports per algorithm s per round, gradient steps per s, peak
           memory, the host's time inside K1's wrapper (the leaf table's
           build and copy), acc_mtl on the held-out batch, and round_bytes
-          on star(10) beside mtsl's. After fedavg's run and its eval, one
-          more fedavg round under torch.profiler with K1's wrapper marked:
-          the round's device busy share and what the host does inside the
-          wrapper (CPU operations and CUDA runtime calls, by name).
+          on star(10) beside mtsl's.
   bparity  card against CPU for the baselines. Full paper-resnet16, M =
           10, b = 8, TF32 off, participation 0.5 with stragglers,
           local_steps 2, lr 0.01, 3 rounds of each of the six from one
@@ -201,7 +203,7 @@ Phases, each of which must pass (any failure exits non-zero):
           seeded 10-round fedavg card runs under
           torch.use_deterministic_algorithms(True): bit-equal parameters.
   lm-baselines  splitfed and fedavg on mamba2-130m's full config: M = 4,
-          b = 4, S = 256, SGD lr 0.05, local_steps 2, 10 rounds on the
+          b = 4, S = 256, SGD lr 0.05, local_steps 2, 5 rounds on the
           4096-token MultiTaskLMSource, through train/loop.py::train.
           Checks a finite loss every round, K3 launches per round as counted
           from the layers, clients, local steps and remat, every K3 launch
@@ -216,7 +218,7 @@ Phases, each of which must pass (any failure exits non-zero):
           for the encoder-decoder, audio frames from
           np.random.default_rng: whisper-tiny at full width and depth (4 +
           4 layers, d 384, 1500 frames, vocabulary 51,865; M = 4, b = 8,
-          S = 448, 10 rounds), deepseek-moe-16b at 13 of its 28 layers (64
+          S = 448, 5 rounds), deepseek-moe-16b at 13 of its 28 layers (64
           routed experts of 1408 + 2 shared, top-6, a dense lead layer of
           11,264; M = 2, b = 1, S = 2048, 3 rounds) and
           llama-3.2-vision-11b at 25 of its 40 layers (cross layers at 5,
@@ -225,9 +227,8 @@ Phases, each of which must pass (any failure exits non-zero):
           (causal, non-causal self, cross) equal to the count from the
           stacks' block kinds and remat, no plain attention forward on the
           card, and K1 once a round over every leaf. Reports s per round,
-          peak memory, the losses, the MoE's dropped-row share (rows over
-          an expert's capacity) and a torch.profiler pass over one more
-          round (device busy share, top kernels, the round's aux loss).
+          peak memory, the losses and the MoE's dropped-row share (rows
+          over an expert's capacity).
   fparity  the smoke configs of deepseek-moe-16b, qwen3-moe-30b-a3b,
           mistral-nemo-12b, llama-3.2-vision-11b and whisper-tiny in f32
           (K2's f32 path in every mode, K1): 3 masked mtsl rounds on the
@@ -299,11 +300,11 @@ Phases, each of which must pass (any failure exits non-zero):
           prompt + new otherwise), tokens; reports the leading tokens the
           ring and the full caches share (bf16: not asserted).
   xparity  the four configs of the new serving paths in f32 at full width
-          (TF32 off): deepseek-moe-16b at 4 layers (split 2, the tower
+          (TF32 off): deepseek-moe-16b at 3 layers (split 2, the tower
           holding an MoE layer; capacity factor 8.0, the smoke configs'
           no-drop setting), llama-3.2-vision-11b at 5 (split 2, the cross
           layer on the server), whisper-tiny whole, mistral-nemo-12b-swa at
-          4 with a window of 64, M = 2, 4 requests of 5..130 tokens each
+          2 (split 1) with a window of 64, M = 2, 4 requests of 5..130 tokens each
           alone in its client's row: the card's prefill and every decode
           step's logits within 1e-4 of the CPU's (plain versions, fed the
           card's tokens; of max(1, max |logit|) per row), greedy tokens
@@ -341,22 +342,22 @@ Phases, each of which must pass (any failure exits non-zero):
           scan_layers, no remat) trained through train/loop.py with AdamW
           lr 3e-3, b 4, S 256 on a 4096-token MultiTaskLMSource (the
           model's vocabulary stays 50,280), under deterministic
-          algorithms: 10 rounds with a checkpoint, 10 more resumed from the
-          file, against 20 uninterrupted rounds: loss histories and states
+          algorithms: 5 rounds with a checkpoint, 5 more resumed from the
+          file, against 10 uninterrupted rounds: loss histories and states
           (params, moments, step) bit-equal; K3 (its f32 FMA path) and K1
           once a round as counted. The file written on the card loads on
           the CPU bit-equal; `repro_torch.launch.serve --checkpoint` serves
           it twice (continuous engine, greedy) with equal tokens. The
           files (3.94 GB each) live under build/ckpt and are removed.
   pipeline  the prefetch pipeline (train/pipeline.py): full paper-resnet16
-          (M = 10, b = 8, lr 0.1, 200 mtsl rounds) through
+          (M = 10, b = 8, lr 0.1, 100 mtsl rounds) through
           `repro_torch.launch.train` at --prefetch 0 and 2 under
           deterministic algorithms: history and final state bit-equal, K1
           once a round (17 leaves); mamba2-130m's full config (M = 4, b =
-          4, S = 256, adamw 3e-3, the 4096-token source) 10 rounds at both
+          4, S = 256, adamw 3e-3, the 4096-token source) 5 rounds at both
           depths: bit-equal, K3 counted on the card equal at both depths
-          (every launch tensor-core), K1 once a round. Then rounds/s of 50
-          resnet16 rounds at depths 0, 2, 2, 0 and the busy share of 20
+          (every launch tensor-core), K1 once a round. Then rounds/s of 20
+          resnet16 rounds at depths 0, 2, 2, 0 and the busy share of 10
           profiled rounds at each depth, with the default convolutions;
           and the host's synthesis ms a round alone, resnet16's and the
           LM's.
@@ -402,7 +403,7 @@ Phases, each of which must pass (any failure exits non-zero):
           the six baselines at lr 0.01 for 2 rounds of 2 local steps
           (losses within 1e-5 of scale; one K1 launch a local step on
           each rank); mamba2-130m's full config through train() (M = 4,
-          b = 4, S = 256, the 4096-token source, SGD lr 0.05, 5 rounds,
+          b = 4, S = 256, the 4096-token source, SGD lr 0.05, 3 rounds,
           2 clients a rank) in its own dtype, bf16, bit-equal to the
           unsharded run with client_chunk 2, its gap to the unchunked run
           reported (bf16 rounds each rank's partial server gradient), and
@@ -414,7 +415,25 @@ Phases, each of which must pass (any failure exits non-zero):
           gathered in memory. Prints s a round with and without the mesh,
           the bytes all-reduced and gathered a round and the host
           seconds in collectives a round, per rank: on one shared card
-          this is the path's cost, not a scaling.
+          this is the path's cost, not a scaling. The dry-run of one
+          data=2 mtsl round of one rank must all-reduce the bytes each
+          rank all-reduced a round (526,900) and launch K1 once.
+  dryrun  launch/dryrun.py in-process at its default mesh (data=16,
+          model=16): ASSIGNED x INPUT_SHAPES on the meta device, the
+          serving programs first, then the train programs from the
+          smallest model up, as many as start within DRYRUN_START_BY_S
+          (the phase ends within DRYRUN_BUDGET_S); prints each program's
+          peak, whether it fits the card, FLOPs, bytes, collective bytes
+          and seconds, and fails on a FAILED program.
+
+The dry-run's predictions are checked in the phases that measure the
+same thing, so `--only` checks them too: lm-train (zamba2-7b at the
+phase's configuration: K2 26 and K3 172 launches a round and K1 once over
+1,146 leaves, as counted on the card and by `launch.dryrun.
+launches_per_round`; the parameter and optimizer-state bytes equal to
+the state's on the card), slice and mesh (above). lm-train, train
+(paper-resnet16), moe and vlm print the predicted peak beside
+torch.cuda.max_memory_allocated, which must fall within PEAK_BAND.
 
 Each kernel time is the median of single calls timed by CUDA events, each
 behind a 256 MB L2 flush and a ~0.2 ms spin on the card that lets the host
@@ -439,14 +458,14 @@ phases alone and prints no result line (`--only
 ssm-serve,hybrid-serve,sparity,ckpt`: the serving and checkpoint phases,
 about 2.5 minutes; `--only moe-serve,vlm-serve,encdec-serve,swa-serve,
 xparity`: the rest of the zoo's serving; `--only graphs`: the compiled
-steps against eager ones). Each run prints its total time, and the
-serving, graphs and checkpoint phases each print their seconds. Without CUDA,
-or without the repository beside it, it exits non-zero and prints no result.
+steps against eager ones). Each run prints its total time and, before
+the result line, every phase's seconds (`PHASE_SECONDS`); a failure
+names its phase. Without CUDA, or without the repository beside it, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import io
 import json
 import os
@@ -460,9 +479,19 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off tensor cores
 HEAD_START_CYCLES = 400_000  # _median_ms's spin before each timed launch
+# the band a phase's measured peak (torch.cuda.max_memory_allocated over
+# its run) must fall in, as a multiple of the peak the dry-run predicts
+# for one round of the phase's own configuration on the meta device
+# (launch/dryrun.py); a phase not named here reports its ratio only. Set
+# from two runs on an H100 80GB HBM3 at 700 W (PERF.md, PR 24): lm-train
+# 1.0021 and 1.0031, moe 0.9913 and 0.9922, vlm 0.9742 and 0.9751; train
+# (paper-resnet16, whose 0.14 GiB of tensors sit beside cuDNN's
+# workspaces, which vary from run to run) 2.4873 and 2.9324
+PEAK_BAND = {"lm-train": (0.98, 1.03), "moe": (0.97, 1.02), "vlm": (0.95, 1.00),
+             "train": (2.0, 4.0)}
+DRYRUN_BUDGET_S = 60.0  # the dryrun phase's programs must end within it
+DRYRUN_START_BY_S = 20.0  # no program starts later than this into the phase
 K4 = {"name": "flash_decode", "route": "cuda",
       "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
       "replaces": "src/repro/kernels/flash_decode/kernel.py:101"}
@@ -555,16 +584,17 @@ K3_CASES = [  # (case, B, L, H, P, N, chunk, dtype, initial state)
 K3_REL_L2 = {"bfloat16": 5e-3, "float32": 2e-6}
 LM_TRAIN = {"arch": "zamba2-7b", "M": 2, "b": 1, "S": 2048, "rounds": 3,
             "lr": 0.05, "data_vocab": 4096}
-# 50 rounds (100 until the mesh phase came, for the script's time limit)
-LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 50,
-            "lr": 3e-3, "data_vocab": 4096, "log_every": 10}
+# 15 rounds for the script's time limit (100 until the mesh phase came,
+# then 50 until the dryrun phase came); the loss falls within the first 10
+LM_LEARN = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 15,
+            "lr": 3e-3, "data_vocab": 4096, "log_every": 5}
 # the rest of the zoo at full width (num_layers: the depth cut, None for
 # full depth), each trained with SGD through the loop on a 4096-token LM
 # source (the model's vocabulary stays full)
 ZOO_RUNS = {
     # whisper-tiny at full width and depth (4 + 4 layers, 1500 frames,
     # whisper's 448-token text context)
-    "encdec": {"arch": "whisper-tiny", "M": 4, "b": 8, "S": 448, "rounds": 10,
+    "encdec": {"arch": "whisper-tiny", "M": 4, "b": 8, "S": 448, "rounds": 5,
                "lr": 0.05, "data_vocab": 4096, "num_layers": None},
     # deepseek-moe-16b, 13 of 28 layers: 8.44 B parameters with M = 2
     # (f32 masters and gradients of the full depth, 17.26 B, would take
@@ -597,13 +627,18 @@ TRAIN_RUNS = [  # (arch, batch per client, K1 leaves per round)
 ROUNDS = 200
 LOG_EVERY = 20  # the launcher's history cadence (TrainConfig's default)
 BASELINES = ("fedavg", "fedprox", "splitfed", "smofi", "parallelsfl", "fedem")
-# the reference's Table 2 setting for the baselines on resnet
-# (benchmarks/table2_accuracy.py): lr 0.1, 30 local steps, 450 gradient
-# steps, 8 samples per client and step
-BASELINE_RUN = {"arch": "paper-resnet16", "b": 8, "lr": 0.1, "local_steps": 30,
-                "rounds": 15, "k1_leaves": 17}
-BASELINE_UNPROBED_ROUNDS = 6  # fedavg once more without the probe
-LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 10,
+# the reference's Table 2 shape for the baselines on resnet
+# (benchmarks/table2_accuracy.py: 30 local steps, 8 samples per client and
+# step; 10 rounds, not its 15, for the script's time limit) at lr 0.01, the
+# rate bparity and mesh run:
+# at the table's lr 0.1 both packages overflow by chance (the reference
+# in 1 of 9 inits on the CPU, the port's splitfed on the card in two
+# runs) and every finite run collapses to uniform predictions (ROADMAP.md
+# queue 3, facts; tests/torch_baseline_drift.py settle checks lr 0.01)
+BASELINE_RUN = {"arch": "paper-resnet16", "b": 8, "lr": 0.01, "local_steps": 30,
+                "rounds": 10, "k1_leaves": 17}
+# 3 rounds for the script's time limit (10 before the dryrun phase came)
+LM_BASELINES = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "rounds": 3,
                 "lr": 0.05, "local_steps": 2, "data_vocab": 4096}
 # the serving phases of the SSM and hybrid LMs at full width and depth: 8
 # requests alternating clients, prompts of 64..256 tokens, 32 new tokens, 4
@@ -644,12 +679,13 @@ SWA_SERVE = {"arch": "mistral-nemo-12b-swa", "M": 2, "b": 1, "new_tokens": 64,
              "prompt_lens": (4064, 4608)}
 # xparity: full width, f32, cut depth (whisper-tiny whole); the MoE at the
 # smoke configs' no-drop capacity factor, the ring at a window of 64
-XPARITY_ARCHS = {
-    "deepseek-moe-16b": {"num_layers": 4, "split_layers": 2,
+XPARITY_ARCHS = {  # (the MoE and the ring at 4 layers, split 2, before
+    # the dryrun phase came: cut for the script's time limit)
+    "deepseek-moe-16b": {"num_layers": 3, "split_layers": 2,
                          "capacity_factor": 8.0},
     "llama-3.2-vision-11b": {"num_layers": 5, "split_layers": 2},
     "whisper-tiny": {},
-    "mistral-nemo-12b-swa": {"num_layers": 4, "split_layers": 2,
+    "mistral-nemo-12b-swa": {"num_layers": 2, "split_layers": 1,
                              "sliding_window": 64, "decode_long_window": 64},
 }
 XPARITY_LOGITS_TOL = 1e-4  # card vs CPU logits, of max(1, max |logit|) per row
@@ -678,8 +714,9 @@ GRAPH_BF16 = {
                   "sequential"),
 }
 # ckpt: the LM example's --full config, trained as lm-learn trains it
+# (10 + 10 rounds before the dryrun phase came, for the script's time limit)
 CKPT = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
-        "data_vocab": 4096, "rounds": 20, "resume_at": 10}
+        "data_vocab": 4096, "rounds": 10, "resume_at": 5}
 # round-1 gradients, card against CPU, max |a - b| / max |b| of the worst
 # leaf, set from the readings on an H100 (PERF.md): f64, the witness that
 # both compute one function (read: 8.3e-16), and f32 (read: 9.8e-4, twice
@@ -724,6 +761,20 @@ def _deterministic(torch):
                    if "deterministic" in str(w.message)})
 
 
+class _PhaseClock:
+    """The phase that runs now, and each phase's seconds: `mark(name)`
+    closes the phase before and opens `name`."""
+
+    def __init__(self):
+        self.current, self.t = "build", time.perf_counter()
+        self.seconds = {}
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.seconds[self.current] = self.seconds.get(self.current, 0.0) + now - self.t
+        self.current, self.t = name, now
+
+
 def _fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
@@ -759,7 +810,8 @@ def _median_ms(fn, iters: int, flush, head_start: bool = True) -> float:
 def kernel_phase(torch, dev):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ops import decode_cost, flash_decode
+    from repro_torch.launch.hardware import bound_ms
     from repro_torch.kernels.flash_decode.ref import decode_reference
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -791,10 +843,8 @@ def kernel_phase(torch, dev):
         if window:
             mask &= kpos[None, :] > q_offset[:, None] - window
         visible = int(mask.sum().item())
-        elt = q.element_size()
-        nbytes = (2 * visible * Hkv * D + 2 * B * Hq * D) * elt + 2 * 4 * B
-        flops = 4 * visible * Hq * D
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        cost = decode_cost(B, cap, Hq, Hkv, D, visible, dtype)
+        bound, bound_by = bound_ms(cost.flops, cost.bytes, dt)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         amask = mask[:, None, None, :]
         row = {
@@ -807,8 +857,7 @@ def kernel_phase(torch, dev):
             "library_ms": _median_ms(
                 lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=amask, enable_gqa=True), 20, flush),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": bound_by,
             "visible_rows": visible, "repeat_bit_equal": True,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -901,12 +950,21 @@ def slice_phase(torch):
     if plain != 0:
         raise AssertionError(f"plain decode ran {plain} times on the card")
     _check_captures(m, M + 1, "slice")
+    from repro_torch.configs import get_config
+
+    # the decode program's dry-run: one step of M clients' towers and the
+    # server, as the continuous engine's decode step runs them
+    dry = _dry_run(get_config("gemma3-12b"), "decode", M, 2, 288)
+    if dry["launches"]["k4"] != per_step:
+        raise AssertionError(f"slice: the dry-run's decode step launches K4 "
+                             f"{dry['launches']['k4']} times, the card {per_step}")
     return {"prefill_ms": m["prefill_ms"], "decode_tok_s": m["decode_tok_s"],
             **_graph_stats(m),
             "tok_s_per_slot": m["tok_s_per_slot"], "slots": m["slots"],
             "decode_steps": m["decode_steps"], "extend_chunks": m["extend_chunks"],
             "k4_launches": launches, "attn_decode_calls": calls,
             "k4_launches_per_decode_step": per_step, "profile": m["profile"],
+            "dryrun_k4_per_decode_step": dry["launches"]["k4"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "phase_s": wall}
 
@@ -996,7 +1054,8 @@ def k1_cases(torch) -> list:
 
 
 def k1_phase(torch, dev):
-    from repro_torch.kernels.mtsl_update.ops import mtsl_update_
+    from repro_torch.kernels.mtsl_update.ops import mtsl_update_, update_cost
+    from repro_torch.launch.hardware import bound_ms
     from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1025,7 +1084,8 @@ def k1_phase(torch, dev):
             def library():
                 return pl.view(rows, -1).addcmul_(eta[:, None], g.view(rows, -1),
                                                   value=-1)
-        t_bytes = 3 * p.numel() * p.element_size() / HBM_BYTES_PER_S
+        cost = update_cost(p.numel(), p.element_size())
+        bound, bound_by = bound_ms(cost.flops, cost.bytes, dt)
         row = {
             "case": name, "shape": list(shape), "rows": rows, "dtype": dt,
             "leaves": paths, "max_abs_err": err, "bit_equal": True,
@@ -1033,7 +1093,7 @@ def k1_phase(torch, dev):
             "plain_ms": _median_ms(lambda: mtsl_update_reference(p, g, eta), 20,
                                    flush),
             "library_ms": _median_ms(library, 20, flush),
-            "bound_ms": t_bytes * 1e3, "bound_by": "bytes",
+            "bound_ms": bound, "bound_by": bound_by,
         }
         rows_out.append(row)
         print(f"  K1 {name} {tuple(shape)} R={rows} {dt} ({len(paths)} leaves): "
@@ -1102,7 +1162,8 @@ def _k1_tree_case(torch, dev, gen, flush, arch):
     from repro_torch.core.mtsl import init_state
     from repro_torch.core.split import is_client_path
     from repro_torch.kernels.mtsl_update.ops import (launch_table, leaf_table,
-                                                     mtsl_update_multi_)
+                                                     mtsl_update_multi_, update_cost)
+    from repro_torch.launch.hardware import bound_ms
     from repro_torch.kernels.mtsl_update.ref import mtsl_update_reference
     from repro_torch.models.registry import build_model
     from repro_torch.utils.tree import tree_leaves_with_path
@@ -1143,7 +1204,8 @@ def _k1_tree_case(torch, dev, gen, flush, arch):
                                         in zip(ps, gs, etas)], 20, flush),
         "library_ms": _median_ms(lambda: torch._foreach_addcmul_(pl, el, gl, value=-1),
                                  20, flush),
-        "bound_ms": 3 * numel * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(*update_cost(numel, 4, len(ps))[:2], "float32"))),
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     print(f"  K1 tree {arch} ({len(ps)} leaves, {numel} elements) one launch: "
@@ -1238,62 +1300,14 @@ def train_phase(torch, dev, arch: str, b: int, leaves: int, rounds: int = ROUNDS
     }
     if dev.type == "cuda":
         res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if arch == "paper-resnet16":
+            from repro_torch.optim import sgd
+
+            res["dryrun"] = _peak_check("train", _dry_run(
+                cfg, "train", M, b, 0, optimizer=sgd(0.1), lr=0.1),
+                res["peak_mem_gib"])
     return res, state
 
-
-def train_profile_phase(torch, dev, state, arch="paper-resnet16", b=8, rounds=20):
-    """One torch.profiler pass over `rounds` more mtsl rounds from `state`,
-    each as the launcher runs it (numpy synthesis, staging, round)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.core.algorithms import HParams, get_algorithm
-    from repro_torch.core.lr_policy import server_scaled
-    from repro_torch.core.schedule import full_schedule
-    from repro_torch.data.pipeline import client_batches
-    from repro_torch.data.synthetic import MultiTaskImageSource
-    from repro_torch.models.registry import build_model
-    from repro_torch.train.loop import stage_batch
-
-    cfg = get_config(arch)
-    M = cfg.num_clients
-    rf = get_algorithm("mtsl").round_fn(
-        build_model(cfg), M, HParams(lr=0.1, component_lr=server_scaled(M)))
-    src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
-                               channels=cfg.image_channels, seed=1)
-    batches = client_batches(src, b, seed=1)
-    sched = full_schedule(M, 1)
-    state, _ = rf(state, stage_batch(next(batches), dev), sched)  # warm
-    torch.cuda.synchronize()
-    data_s = 0.0
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(rounds):
-            td = time.perf_counter()
-            batch = next(batches)
-            data_s += time.perf_counter() - td
-            state, metrics = rf(state, stage_batch(batch, dev), sched)
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels
-                if "mtsl_update" in e.key) / 1e3
-    return {
-        "rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
-        "device_ms_per_round": device_ms / rounds,
-        "device_busy_share": device_ms / wall_ms,
-        "host_data_ms_per_round": data_s * 1e3 / rounds,
-        "k1_device_ms_per_round": k1_ms / rounds,
-        "kernel_launches_per_round": sum(e.count for e in kernels) / rounds,
-        "top_kernels": [
-            {"name": e.key[:80], "ms_per_round": e.self_device_time_total / 1e3 / rounds,
-             "calls_per_round": e.count / rounds} for e in kernels[:10]],
-    }
 
 
 def _parity_setup(rounds: int):
@@ -1503,23 +1517,12 @@ def _allclose(got, want, tol: float) -> bool:
     return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
-def _visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, per head: all Sq x Sk
-    without the causal mask (the paths' non-causal calls have no window),
-    else those of a causal (+ window) mask over Sq = Sk."""
-    if not causal:
-        return Sq * Sk
-    S = Sq
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
-
-
 def k2_phase(torch, dev):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import attention_cost, flash_attention
     from repro_torch.kernels.flash_attention.ref import attn_mask, mha_reference
+    from repro_torch.launch.hardware import bound_ms
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1541,9 +1544,9 @@ def k2_phase(torch, dev):
             raise AssertionError(
                 f"K2 {name}: kernel vs plain beyond {tol[dt]} (abs + rel; max "
                 f"|diff| {err}) or ||diff|| / ||ref|| {rel_l2} > {K2_REL_L2[dt]}")
-        nbytes = 2 * (B * Sq * Hq * D + B * Sk * Hkv * D) * q.element_size()
-        flops = 4 * D * Hq * B * _visible_pairs(Sq, Sk, causal, window)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        cost = attention_cost(B, Sq, Sk, Hq, Hkv, D, causal, window,
+                              q.element_size())
+        bound, bound_by = bound_ms(cost.flops, cost.bytes, dt)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if window:
             amask = attn_mask(Sq, Sk, causal=causal, window=window, device=dev)
@@ -1563,9 +1566,8 @@ def k2_phase(torch, dev):
             "plain_ms": _median_ms(
                 lambda: mha_reference(q, k, v, causal=causal, window=window), 5, flush),
             "library_ms": _median_ms(library, 20, flush),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes, "repeat_bit_equal": True,
+            "bound_ms": bound, "bound_by": bound_by,
+            "flops": cost.flops, "bytes": cost.bytes, "repeat_bit_equal": True,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
@@ -1604,7 +1606,8 @@ def _k3_rounding(torch, y, x, dt, A, Bm, Cm, chunk, h0) -> dict:
 
 
 def k3_phase(torch, dev):
-    from repro_torch.kernels.ssd_scan.ops import scan_plan, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import scan_cost, scan_plan, ssd_scan
+    from repro_torch.launch.hardware import bound_ms
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1640,11 +1643,8 @@ def k3_phase(torch, dev):
                                  f"|diff| {err}), ||diff|| / ||ref|| {rel_l2} > "
                                  f"{K3_REL_L2[dt]}, or state max |diff| {serr} > 1e-4")
         split = _k3_rounding(torch, y, x, dtv, A, Bm, Cm, chunk, h0)
-        elt = x.element_size()
-        nbytes = (2 * B * L * H * P + 2 * B * L * N) * elt + 4 * (B * L * H + H) \
-            + 4 * B * H * P * N * (2 if with_state else 1)
-        flops = B * H * 2 * L * (chunk * N + chunk * P // 2 + 2 * P * N)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt]
+        cost = scan_cost(B, L, H, P, N, chunk, dtype, with_state)
+        bound, bound_by = bound_ms(cost.flops, cost.bytes, dt)
         row = {
             "case": name, "B": B, "L": L, "H": H, "P": P, "N": N, "chunk": chunk,
             "dtype": dt, "initial_state": with_state, "path": plan["path"],
@@ -1656,9 +1656,8 @@ def k3_phase(torch, dev):
             "plain_ms": _median_ms(lambda: ssd_reference(
                 x, dtv, A, Bm, Cm, chunk=chunk, initial_state=h0), 5, flush),
             "library_ms": None,  # no PyTorch call computes the SSD scan
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": nbytes, "repeat_bit_equal": True,
+            "bound_ms": bound, "bound_by": bound_by,
+            "flops": cost.flops, "bytes": cost.bytes, "repeat_bit_equal": True,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
@@ -1724,84 +1723,44 @@ def _read_counts(torch):
     return got
 
 
-# (K2 causal, K2 non-causal self, K2 cross, K3) launches of one block's
-# forward, by kind
-_BLOCK_LAUNCHES = {"full": (1, 0, 0, 0), "swa": (1, 0, 0, 0),
-                   "dense_moe_lead": (1, 0, 0, 0), "moe": (1, 0, 0, 0),
-                   "bidir": (0, 1, 0, 0), "cross": (1, 0, 1, 0),
-                   "mamba": (0, 0, 0, 1), "shared_attn": (1, 0, 0, 1)}
+def _dry_run(cfg, kind: str, M: int, b: int, S: int, **kw) -> dict:
+    """`launch.dryrun.run_program` of `cfg` on the meta device (the card's
+    capacity from the card): the phase's own configuration, run after its
+    measured window. Meta calls count only in `kernels.counts.META`, never
+    in the card's counters."""
+    from repro_torch.launch.dryrun import run_program
+    from repro_torch.models.registry import build_model
+
+    out = run_program(build_model(cfg), kind, M, b, S, device="cuda", **kw)
+    out["collective_ops"] = len(out["collective_ops"])
+    return out
+
+
+def _peak_check(what: str, dry: dict, measured_gib: float) -> dict:
+    """The dry-run's predicted peak beside the measured one; inside
+    PEAK_BAND[what] when the band is set (else reported only)."""
+    pred = dry["peak_bytes"] / 2**30
+    ratio = measured_gib / pred
+    band = PEAK_BAND.get(what)
+    print(f"  {what}: peak {measured_gib:.3f} GiB measured, {pred:.3f} GiB predicted "
+          f"by the dry-run ({ratio:.4f} of it; band {band}; fits one card "
+          f"{dry['fits_one_h100']})", flush=True)
+    if band is not None and not band[0] <= ratio <= band[1]:
+        raise AssertionError(f"{what}: measured peak {measured_gib:.3f} GiB is "
+                             f"{ratio:.4f} of the predicted {pred:.3f}, outside {band}")
+    return {"predicted_peak_gib": pred, "measured_peak_gib": measured_gib,
+            "ratio": ratio, "band": band, "fits_one_h100": dry["fits_one_h100"],
+            "dryrun_s": dry["run_s"]}
 
 
 def _lm_launches_per_round(cfg, M: int, microbatches: int = 1,
                            local_steps: int = 1, full_models: bool = False) -> dict:
-    """K2 (all, and the non-causal self and cross ones apart) and K3
-    launches one round makes, from each stack's block kinds
-    (`models.registry.stack_kinds`, _BLOCK_LAUNCHES): the towers run once
-    per client and local step, the server once per step (mtsl, splitfed:
-    the clients' smashed data folds into one batch) or once per client and
-    step (`full_models`: fedavg's per-client full models); under remat
-    every unit's forward runs again in the backward."""
-    from repro_torch.models.registry import stack_kinds
+    """K2 and K3 launches one round makes (`launch.dryrun.launches_per_round`,
+    from each stack's block kinds)."""
+    from repro_torch.launch.dryrun import launches_per_round
 
-    remat = 1 if cfg.remat == "none" else 2
-    n = remat * microbatches * local_steps
-    tot = [0, 0, 0, 0]
-    for (side, _), kinds in stack_kinds(cfg).items():
-        times = M if side == "tower" or full_models else 1
-        for kind in kinds:
-            for i, c in enumerate(_BLOCK_LAUNCHES[kind]):
-                tot[i] += n * times * c
-    causal, bidir, cross, k3 = tot
-    return {"k2": causal + bidir + cross, "k2_bidir": bidir, "k2_cross": cross,
-            "k3": k3}
+    return launches_per_round(cfg, M, microbatches, local_steps, full_models)
 
-
-_KERNEL_KINDS = (  # (kind, substrings of the kernel's name), first match wins
-    ("k2", ("flash_attention",)), ("k3", ("ssd_scan",)), ("k1", ("mtsl_update",)),
-    ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),
-    ("reduce", ("reduce", "softmax", "logsumexp", "scan")),
-    ("copy_cast", ("copy", "cat", "index")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def _profile_round(torch, rf, state, batch, sched):
-    """torch.profiler over one round: device busy share and top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = rf(state, batch, sched)
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-
-    def share(tag):
-        return sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
-
-    by_kind = {}
-    for e in kernels:  # the port's kernels by name, PyTorch's by family
-        name = e.key.lower()
-        kind = next((k for k, tags in _KERNEL_KINDS if any(t in name for t in tags)),
-                    "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
-    return state, {
-        "loss": loss, "aux": float(metrics["aux"]),
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "k2_device_ms": share("flash_attention"),
-        "k3_device_ms": share("ssd_scan"),
-        "k1_device_ms": share("mtsl_update"),
-        "device_ms_by_kind": by_kind,
-        "kernel_launches": sum(e.count for e in kernels),
-        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                         "calls": e.count} for e in kernels[:12]],
-    }
 
 
 def lm_train_phase(torch, dev):
@@ -1811,16 +1770,15 @@ def lm_train_phase(torch, dev):
     import math
 
     from repro_torch.configs import get_config
-    from repro_torch.core.algorithms import HParams, get_algorithm
     from repro_torch.core.lr_policy import server_scaled
-    from repro_torch.core.schedule import full_schedule
     from repro_torch.data.lm import MultiTaskLMSource
     from repro_torch.data.pipeline import client_batches
     from repro_torch.models.registry import build_model
     from repro_torch.optim import sgd
     from repro_torch.core.split import is_client_path
-    from repro_torch.train.loop import TrainConfig, stage_batch, train
+    from repro_torch.train.loop import TrainConfig, train
     from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+    from torch.utils._pytree import tree_flatten
 
     c = LM_TRAIN
     cfg = get_config(c["arch"])
@@ -1859,13 +1817,33 @@ def lm_train_phase(torch, dev):
            "s_per_round": [times[0]] + [b - a for a, b in zip(times, times[1:])],
            "peak_mem_gib": peak, "phase_s": wall, "counts": counts,
            "launches_per_round": want, "k1_leaves": leaves}
-    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
-        lr=c["lr"], component_lr=server_scaled(M)))
-    batch = stage_batch(next(client_batches(src, c["b"], seed=1, seq_len=c["S"])), dev)
-    state, res["profile"] = _profile_round(torch, rf, state, batch, full_schedule(M, 1))
+    # the dry-run of one round at the phase's configuration: its launches
+    # and state bytes exactly, its peak against the measured one
+    dry = _dry_run(cfg, "train", M, c["b"], c["S"], optimizer=sgd(c["lr"]),
+                   component_lr=server_scaled(M), lr=c["lr"])
+    card_bytes = {"params": sum(x.numel() * x.element_size()
+                                for x in tree_leaves(state.params)),
+                  "opt_state": sum(x.numel() * x.element_size() for x in
+                                   tree_flatten(state.opt_state)[0]
+                                   if torch.is_tensor(x))}
+    got = dry["launches"]
+    if not (got["k2"] == counts["k2"] // rounds == want["k2"]
+            and got["k3"] == counts["k3"] // rounds == want["k3"]
+            and got["k1"] == 1 and dry["k1_leaves"] == leaves
+            and dry["param_bytes"] == card_bytes["params"]
+            and dry["opt_state_bytes"] == card_bytes["opt_state"]):
+        raise AssertionError(f"lm-train: the dry-run's launches {got}, K1 leaves "
+                             f"{dry['k1_leaves']}, state bytes "
+                             f"{dry['param_bytes']} + {dry['opt_state_bytes']}; the "
+                             f"card's per round {counts} / {rounds}, {leaves} leaves, "
+                             f"state bytes {card_bytes}")
+    res["dryrun"] = {"launches": got, "k1_leaves": dry["k1_leaves"],
+                     "state_bytes": card_bytes, "flops": dry["flops"],
+                     "bytes_accessed": dry["bytes_accessed"],
+                     **_peak_check("lm-train", dry, peak)}
     specs = [(tuple(x.shape), x.dtype, is_client_path(k))
              for k, x in tree_leaves_with_path(state.params)]
-    del state, batch
+    del state
     torch.cuda.empty_cache()
     res["k1_full_width"] = _k1_full_width(torch, dev, specs, M)
     return res
@@ -1928,9 +1906,8 @@ def lm_learn_phase(torch, dev):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.algorithms import HParams, get_algorithm
+    from repro_torch.core.algorithms import get_algorithm
     from repro_torch.core.lr_policy import server_scaled
-    from repro_torch.core.schedule import full_schedule
     from repro_torch.data.lm import MultiTaskLMSource
     from repro_torch.data.pipeline import client_batches
     from repro_torch.models.registry import build_model
@@ -1964,13 +1941,9 @@ def lm_learn_phase(torch, dev):
     ev = get_algorithm("mtsl").eval_fn(model, M)(state, held)
     per = ev["per_task_loss"].cpu().numpy()
     floors = np.array([src.entropy_floor(m) for m in range(M)])
-    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
-        optimizer=adamw(c["lr"]), component_lr=server_scaled(M)))
     t0 = time.perf_counter()
-    batch = next(client_batches(src, c["b"], seed=1, seq_len=c["S"]))
+    next(client_batches(src, c["b"], seed=1, seq_len=c["S"]))
     data_ms = (time.perf_counter() - t0) * 1e3
-    state, profile = _profile_round(torch, rf, state, stage_batch(batch, dev),
-                                    full_schedule(M, 1))
     del state
     return {"arch": c["arch"], "M": M, "b": c["b"], "S": c["S"], "rounds": rounds,
             "lr": c["lr"], "optimizer": "adamw",
@@ -1978,7 +1951,7 @@ def lm_learn_phase(torch, dev):
             "held_out_per_task_loss": per.tolist(), "entropy_floor": floors.tolist(),
             "gap_to_floor": (per - floors).tolist(), "phase_s": wall,
             "ms_per_round": (hist[-1]["time"] - hist[0]["time"]) / (rounds - 1) * 1e3,
-            "host_data_ms": data_ms, "counts": counts, "profile": profile}
+            "host_data_ms": data_ms, "counts": counts}
 
 
 def _lm_parity_run(torch, arch, device, init, batches, rounds, seed_sched):
@@ -2093,13 +2066,11 @@ def zoo_phase(torch, dev, key: str):
     import math
 
     from repro_torch.configs import get_config
-    from repro_torch.core.algorithms import HParams, get_algorithm
     from repro_torch.core.lr_policy import server_scaled
-    from repro_torch.core.schedule import full_schedule
     from repro_torch.models.moe import moe_forward
     from repro_torch.models.registry import build_model
     from repro_torch.optim import sgd
-    from repro_torch.train.loop import TrainConfig, stage_batch, train
+    from repro_torch.train.loop import TrainConfig, train
     from repro_torch.utils.tree import tree_leaves
 
     c = ZOO_RUNS[key]
@@ -2150,11 +2121,10 @@ def zoo_phase(torch, dev, key: str):
         kept, routed = tally.tolist()
         res["moe_rows_kept"], res["moe_rows_routed"] = kept, routed
         res["dropped_share"] = 1.0 - kept / routed
-    rf = get_algorithm("mtsl").round_fn(model, M, HParams(
-        lr=c["lr"], component_lr=server_scaled(M)))
-    state, res["profile"] = _profile_round(torch, rf, state,
-                                           stage_batch(batches[rounds], dev),
-                                           full_schedule(M, 1))
+    if key in ("moe", "vlm"):  # the dry-run's peak for one round
+        res["dryrun"] = _peak_check(key, _dry_run(
+            cfg, "train", M, c["b"], c["S"], optimizer=sgd(c["lr"]),
+            component_lr=server_scaled(M), lr=c["lr"]), peak)
     del state, batches
     return res
 
@@ -2234,56 +2204,6 @@ def _k1_host_time(acc):
         federation.mtsl_update_multi_ = real
 
 
-def _k1_wrapper_profile(torch, rf, state, batch, sched):
-    """One round under torch.profiler with K1's wrapper, as the baselines
-    call it, marked: the round's wall and device time, the host's time
-    inside the wrapper, and the CPU operations and CUDA runtime calls that
-    ran inside it, each with its calls and summed inclusive ms, the widest
-    first (the profiler's own cost is in every number)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.core import federation
-
-    real = federation.mtsl_update_multi_
-
-    def marked(ps, gs, etas):
-        with record_function("k1_wrapper"):
-            return real(ps, gs, etas)
-
-    torch.cuda.synchronize()
-    federation.mtsl_update_multi_ = marked
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, metrics = rf(state, batch, sched)
-            float(metrics["loss"])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        federation.mtsl_update_multi_ = real
-    events = prof.events()
-    cpu = torch.autograd.DeviceType.CPU
-    spans = [(e.time_range.start, e.time_range.end, e.thread) for e in events
-             if e.name == "k1_wrapper" and e.device_type == cpu]  # not its GPU span
-    inside = {}
-    for e in events:
-        if e.device_type != cpu or e.name == "k1_wrapper":
-            continue
-        r = e.time_range
-        if any(a <= r.start and r.end <= z and e.thread == th for a, z, th in spans):
-            calls, us = inside.get(e.name, (0, 0.0))
-            inside[e.name] = (calls + 1, us + r.elapsed_us())
-    device_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    return state, {
-        "wall_ms": wall_ms, "device_ms": device_us / 1e3,
-        "device_busy_share": device_us / 1e3 / wall_ms,
-        "wrapper_calls": len(spans),
-        "wrapper_ms": sum(z - a for a, z, _ in spans) / 1e3,
-        "inside_wrapper": [{"name": k[:60], "calls": c, "ms": us / 1e3}
-                           for k, (c, us) in sorted(inside.items(),
-                                                    key=lambda kv: -kv[1][1])[:14]]}
-
 
 def _state_leaves(state) -> dict:
     """{path: tensor} of an algorithm's state (FedEM's is (components, pi))."""
@@ -2313,12 +2233,12 @@ def baselines_phase(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.core import comm_cost
     from repro_torch.core.algorithms import HParams, get_algorithm
-    from repro_torch.core.schedule import full_schedule
     from repro_torch.data.pipeline import client_batches
     from repro_torch.data.synthetic import MultiTaskImageSource
     from repro_torch.models.registry import build_model
     from repro_torch.optim import sgd
     from repro_torch.train.loop import TrainConfig, stage_batch, train
+    from repro_torch.utils.device import generator
 
     c = BASELINE_RUN
     cfg = get_config(c["arch"])
@@ -2359,35 +2279,30 @@ def baselines_phase(torch, dev):
             raise AssertionError(
                 f"baselines {name}: K1 counts {counts}, want {steps} launches over "
                 f"{c['k1_leaves']} leaves each, no per-leaf launch, no plain update")
+        # the loss falls: the median of the last five rounds' below the
+        # first round's (smofi's round loss swings up to 2x from round to
+        # round at this rate); FedEM's round loss is 0, so its mixture NLL on
+        # the first round's batch, at the end against at its initial state
+        if name == "fedem":
+            first = stage_batch(next(iter(client_batches(src, c["b"] * ls, seed=0))),
+                                dev)
+            falls = (_mixture_nll(torch, model, alg.init_state(
+                model, generator(dev, 0), M, hp), first),
+                _mixture_nll(torch, model, state, first))
+            del first
+        else:
+            falls = (losses[0], sorted(losses[-5:])[2])
+        if not falls[1] < falls[0]:
+            raise AssertionError(f"baselines {name}: the loss does not fall "
+                                 f"({falls[0]} -> {falls[1]}): {losses}")
         ev = alg.eval_fn(model, M)(state, held)
         times = [e["time"] for e in hist]
-        if name == "fedavg":  # after the counts and the eval were read
-            state, prof = _k1_wrapper_profile(
-                torch, alg.round_fn(model, M, hp),
-                state, stage_batch(next(iter(client_batches(src, c["b"] * ls, seed=0))),
-                                   dev), full_schedule(M, ls))
-            out["fedavg_k1_wrapper_profile"] = prof
-            print(f"  fedavg, one round profiled: {prof}", flush=True)
-            # the probe's cost, read directly: the same run unprobed
-            u = BASELINE_UNPROBED_ROUNDS
-            torch.cuda.synchronize()
-            _, hist_u = train(model, sgd(c["lr"]),
-                              client_batches(src, c["b"] * ls, seed=0),
-                              dataclasses.replace(tcfg, steps=ls * u), M,
-                              log=lambda _: None)
-            out["fedavg_unprobed"] = {
-                "rounds": u, "s_per_round": (hist_u[-1]["time"] - hist_u[0]["time"])
-                / (u - 1),
-                # the probed run's same rounds, its probe's host seconds out
-                "probed_run_s_per_round": (times[u - 1] - times[0]
-                                           - sum(probe.host_s[ls:ls * u])) / (u - 1)}
-            del hist_u
         # times over the unprobed work: the probe's host seconds left out
-        # (the rounds are host-bound; fedavg's unprobed run above checks it)
+        # (the rounds are host-bound)
         probe_s, probe_s_late = sum(probe.host_s), sum(probe.host_s[ls:])
         s_round = (times[-1] - times[0] - probe_s_late) / (rounds - 1)
         wall -= probe_s
-        res = {"losses": losses, "s_per_round": s_round,
+        res = {"losses": losses, "falls": falls, "s_per_round": s_round,
                "s_per_round_probed": (times[-1] - times[0]) / (rounds - 1),
                "probe_host_s": probe_s,
                "first_round_s": times[0] - sum(probe.host_s[:ls]),
@@ -2409,6 +2324,26 @@ def baselines_phase(torch, dev):
         del state, ev
         torch.cuda.empty_cache()
     return out
+
+
+def _mixture_nll(torch, model, state, batch) -> float:
+    """FedEM's held-out loss (its round metric is 0, as the reference's):
+    the sum over tasks of the mean -log of the pi-weighted mixture's
+    probability of the label."""
+    from repro_torch.utils.tree import tree_map
+
+    comps, pi = state
+    M, K = pi.shape
+    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()
+            if k != "label"}
+    with torch.no_grad():
+        probs = torch.stack([torch.softmax(model.server_forward(
+            c["server"], model.tower_forward(c["tower"], flat))[0].float(), -1)
+            for c in (tree_map(lambda x, k=k: x[k], comps) for k in range(K))])
+        mixed = torch.einsum("kmbc,mk->mbc", probs.reshape(K, M, -1, probs.shape[-1]),
+                             pi)
+        p = mixed.gather(-1, batch["label"].long()[..., None])[..., 0]
+        return float(-torch.log(p).mean(1).sum())
 
 
 def _update_leaf_names(state) -> list:
@@ -3639,7 +3574,7 @@ def ckpt_phase(torch, dev):
     batches = list(client_batches(src, c["b"], steps=rounds, seed=0, seq_len=c["S"]))
     folder = ROOT / "build" / "ckpt"  # inside the checkout, ignored by git
     folder.mkdir(parents=True, exist_ok=True)
-    first, last = str(folder / "round10.msgpack"), str(folder / "round20.msgpack")
+    first, last = (str(folder / f"round{r}.msgpack") for r in (cut, rounds))
 
     def run(steps, stream, path=None, **kw):
         tcfg = TrainConfig(steps=steps, lr=c["lr"], log_every=1, seed=0,
@@ -3701,10 +3636,16 @@ def ckpt_phase(torch, dev):
 # the training loop's systems layers (pipeline, async, cached, chunk): the
 # train phase's paper-resnet16 (M = 10, b = 8, lr 0.1) unless stated
 SYS_ARCH, SYS_B, SYS_LR = "paper-resnet16", 8, 0.1
+# the pipeline's bit-equal runs: resnet16 100 rounds and the LM 5 at each
+# depth (200 and 10 before the dryrun phase came, for the script's time
+# limit)
+SYS_ROUNDS = 100
 SYS_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
-          "data_vocab": 4096, "rounds": 10}
-SYS_TIMED_ROUNDS = 50  # unprofiled rounds timed at each prefetch depth
-SYS_PROFILE_ROUNDS = 20  # profiled rounds at each prefetch depth
+          "data_vocab": 4096, "rounds": 5}
+# measurements only (50 and 20 before the dryrun phase came, for the
+# script's time limit)
+SYS_TIMED_ROUNDS = 20  # unprofiled rounds timed at each prefetch depth
+SYS_PROFILE_ROUNDS = 10  # profiled rounds at each prefetch depth
 ASYNC_RUN = {"rounds": 20, "num_servers": 2, "sync_every": 2, "straggler_frac": 0.5,
              "staleness_decay": 0.5, "max_staleness": 4, "link_mbps": 10.0,
              "cut": 12}
@@ -3717,8 +3658,9 @@ CHUNK_LOSS_TOL = 1e-5  # of max(1, |loss|), and on parameters: the CPU tests'
 MESH_RUN = {"nccl_rounds": 20, "nccl_lr": 0.1, "rounds": 10, "lr": 0.01,
             "local_steps": 2, "baseline_rounds": 2, "resume_rounds": 5,
             "world": 2, "dir": "build/mesh"}
+# 3 rounds (5 before the dryrun phase came, for the script's time limit)
 MESH_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 0.05,
-           "rounds": 5, "data_vocab": 4096}
+           "rounds": 3, "data_vocab": 4096}
 
 
 def _launch(argv):
@@ -3795,17 +3737,17 @@ def pipeline_phase(torch, dev):
     from repro_torch.train.loop import TrainConfig, train
 
     leaves = next(lv for arch, _, lv in TRAIN_RUNS if arch == SYS_ARCH)
-    out = {"arch": SYS_ARCH, "rounds": ROUNDS, "depths": {}}
+    out = {"arch": SYS_ARCH, "rounds": SYS_ROUNDS, "depths": {}}
     runs = {}
     for depth in (0, 2):
         _reset_counts(torch)
         t0 = time.perf_counter()
         with _deterministic(torch):
-            state, hist, _ = _launch(_sys_argv(ROUNDS, "--prefetch", str(depth)))
+            state, hist, _ = _launch(_sys_argv(SYS_ROUNDS, "--prefetch", str(depth)))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _read_counts(torch)
-        _check_k1(counts, ROUNDS, f"pipeline depth {depth}", leaves * ROUNDS)
+        _check_k1(counts, SYS_ROUNDS, f"pipeline depth {depth}", leaves * SYS_ROUNDS)
         runs[depth] = (state, [e["loss"] for e in hist])
         out["depths"][depth] = {"k1_launches": counts["k1"], "deterministic_run_s": wall}
     if runs[0][1] != runs[2][1] or not _state_bits_equal(torch, runs[0][0], runs[2][0]):
@@ -4454,6 +4396,21 @@ def mesh_phase(torch, dev):
                 _check_k1(g["counts"], job["steps"], f"mesh data=2 {name} rank {r}")
             run["k1_launches_per_rank"] = [g["counts"]["k1"] for g in got]
             out["data2"]["runs"][name] = run
+        # the dry-run of one data=2 mtsl round of one rank: the bytes every
+        # rank all-reduced a round, and K1 once a round
+        m2 = out["data2"]["runs"]["mtsl"]
+        scfg = get_config(SYS_ARCH)
+        dry = _dry_run(scfg, "train", scfg.num_clients, SYS_B, 0, shards=W,
+                       optimizer=sgd(c["lr"]), lr=c["lr"])
+        measured = [col["all_reduce"]["bytes"] / c["rounds"] for col in m2["collectives"]]
+        predicted = dry["collectives"].get("all-reduce", [0, 0])[1]
+        if not (measured == [predicted] * W and dry["launches"]["k1"] == 1):
+            raise AssertionError(f"mesh data=2 mtsl: all-reduced {measured} B a round "
+                                 f"per rank, the dry-run {predicted}; its K1 launches "
+                                 f"{dry['launches']['k1']}, want 1")
+        m2["dryrun"] = {"all_reduce_bytes_per_round": predicted,
+                        "collectives": dry["collectives"],
+                        "k1_launches": dry["launches"]["k1"], "run_s": dry["run_s"]}
         # the data=2 mtsl run's checkpoint: against the run without a mesh
         # (1e-5) and against its twin (bit for bit)
         cfg = get_config(SYS_ARCH)
@@ -4511,12 +4468,69 @@ def mesh_phase(torch, dev):
     return out
 
 
+def dryrun_phase(torch) -> dict:
+    """`launch/dryrun.py` in-process at its default mesh (data=16,model=16)
+    over ASSIGNED x INPUT_SHAPES: the serving programs first, then the
+    train programs from the smallest model up, each started only while
+    the phase's clock, plus the last program of its kind's seconds x 1.5,
+    stays within DRYRUN_START_BY_S. Prints the table; fails on a FAILED
+    program."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    def size(arch):
+        cfg = get_config(arch)
+        return cfg.num_layers * cfg.d_model * max(cfg.num_experts or 1, 1)
+
+    serve = [(a, s) for a in dryrun.ASSIGNED for s in INPUT_SHAPES
+             if INPUT_SHAPES[s].kind != "train"]
+    train = [(a, s) for a in sorted(dryrun.ASSIGNED, key=size) for s in INPUT_SHAPES
+             if INPUT_SHAPES[s].kind == "train"]
+    t0 = time.perf_counter()
+    rows, skipped, last = [], [], {}
+    gib = 2 ** 30
+    print(f"  {'arch':<22s} {'shape':<12s} {'status':<8s} {'peak GiB':>10s} "
+          f"{'fits':>5s} {'flops':>10s} {'bytes':>10s} {'coll. B':>10s} {'s':>6s}",
+          flush=True)
+    for arch, shape in serve + train:
+        kind = INPUT_SHAPES[shape].kind
+        if time.perf_counter() - t0 + 1.5 * last.get(kind, 0.0) > DRYRUN_START_BY_S:
+            skipped.append(f"{arch} x {shape}")
+            continue
+        t1 = time.perf_counter()
+        try:
+            r = dryrun.lower_program(arch, shape, verbose=False, device="cuda")
+        except Exception as e:  # noqa: BLE001 — the table names it; the phase fails
+            traceback.print_exc()
+            r = {"arch": arch, "shape": shape, "status": "FAILED",
+                 "error": f"{type(e).__name__}: {e}"}
+        last[kind] = time.perf_counter() - t1
+        r["s"] = last[kind]
+        rows.append({k: v for k, v in r.items() if k != "kernels"})
+        if r["status"] == "OK":
+            print(f"  {arch:<22s} {shape:<12s} {'OK':<8s} {r['peak_bytes'] / gib:10.2f} "
+                  f"{str(r['fits_one_h100']):>5s} {r['flops']:10.3e} "
+                  f"{r['bytes_accessed']:10.3e} {r['collective_bytes']:10.3e} "
+                  f"{r['s']:6.2f}", flush=True)
+        else:
+            print(f"  {arch:<22s} {shape:<12s} {r['status']:<8s} "
+                  f"{r.get('reason', r.get('error', ''))}", flush=True)
+    failed = [f"{r['arch']} x {r['shape']}" for r in rows if r["status"] == "FAILED"]
+    out = {"mesh": dryrun.DEFAULT_MESH, "programs": rows, "not_run_for_time": skipped,
+           "phase_s": time.perf_counter() - t0}
+    print(f"  dryrun: {len(rows)} programs in {out['phase_s']:.1f} s ({len(skipped)} "
+          f"not started for time: {skipped})", flush=True)
+    if failed:
+        raise AssertionError(f"dryrun: FAILED {failed}")
+    return out
+
+
 PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
           "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
           "swa-serve", "xparity", "graphs", "ckpt", "pipeline", "async", "cached",
-          "chunk", "mesh")
+          "chunk", "mesh", "dryrun")
 
 
 def _phases_wanted(argv):
@@ -4563,6 +4577,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     report = {}
     want = _phases_wanted(sys.argv[1:])
+    clock = _PhaseClock()
     try:
         t0 = time.perf_counter()
         regs = build_phase()
@@ -4572,33 +4587,45 @@ def main() -> int:
             print(f"  ptxas {name}: {lines}", flush=True)
 
         if want("kernel"):
+
+            clock.mark("kernel")
             print("[kernel] K4 vs its plain version", flush=True)
             cases = kernel_phase(torch, dev)
             print("KERNEL_CASES " + json.dumps(cases), flush=True)
 
         if want("k1"):
+
+            clock.mark("k1")
             print("[k1] K1 vs its plain version (bit-equal)", flush=True)
             k1_cases = k1_phase(torch, dev)
             print("K1_CASES " + json.dumps(k1_cases), flush=True)
 
         if want("k2"):
+
+            clock.mark("k2")
             print("[k2] K2 vs its plain version", flush=True)
             k2_cases = k2_phase(torch, dev)
             print("K2_CASES " + json.dumps(k2_cases), flush=True)
 
         if want("k3"):
+
+            clock.mark("k3")
             print("[k3] K3 vs its plain version", flush=True)
             k3_cases = k3_phase(torch, dev)
             print("K3_CASES " + json.dumps(k3_cases), flush=True)
             torch.cuda.empty_cache()
 
         if want("slice"):
+
+            clock.mark("slice")
             print("[slice] gemma3-12b full width/depth, M=2, continuous", flush=True)
             report["slice"] = slice_phase(torch)
             print("SLICE " + json.dumps(report["slice"]), flush=True)
             torch.cuda.empty_cache()
 
         if want("parity"):
+
+            clock.mark("parity")
             print("[parity] full width, 6+6 layers, f32: continuous == sequential",
                   flush=True)
             report["parity"] = parity_phase(torch)
@@ -4606,18 +4633,20 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("train"):
+
+            clock.mark("train")
             report["train"] = []
             for arch, b, leaves in TRAIN_RUNS:
                 print(f"[train] {arch} full width/depth, mtsl, {ROUNDS} rounds",
                       flush=True)
                 res, state = train_phase(torch, dev, arch, b, leaves)
-                if arch == "paper-resnet16":
-                    res["profile"] = train_profile_phase(torch, dev, state)
                 del state
                 report["train"].append(res)
                 print("TRAIN " + json.dumps(res), flush=True)
 
         if want("tparity"):
+
+            clock.mark("tparity")
             print("[tparity] paper-resnet16, 3 masked rounds: card == CPU; seeded "
                   "repeatability", flush=True)
             report["tparity"] = train_parity_phase(torch)
@@ -4625,6 +4654,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("lm-train"):
+
+            clock.mark("lm-train")
             print(f"[lm-train] {LM_TRAIN['arch']} full width/depth, M={LM_TRAIN['M']}, "
                   f"S={LM_TRAIN['S']}, SGD, {LM_TRAIN['rounds']} rounds", flush=True)
             report["lm_train"] = lm_train_phase(torch, dev)
@@ -4632,6 +4663,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("lm-learn"):
+
+            clock.mark("lm-learn")
             print(f"[lm-learn] {LM_LEARN['arch']} full config, adamw, "
                   f"{LM_LEARN['rounds']} rounds", flush=True)
             report["lm_learn"] = lm_learn_phase(torch, dev)
@@ -4639,6 +4672,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("lm-parity"):
+
+            clock.mark("lm-parity")
             print("[lm-parity] smoke zamba2-7b and mamba2-130m: card == CPU; seeded "
                   "repeatability", flush=True)
             report["lm_parity"] = lm_parity_phase(torch)
@@ -4646,6 +4681,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("baselines"):
+
+            clock.mark("baselines")
             print(f"[baselines] {', '.join(BASELINES)} on full "
                   f"{BASELINE_RUN['arch']}, {BASELINE_RUN['local_steps']} local "
                   f"steps x {BASELINE_RUN['rounds']} rounds", flush=True)
@@ -4654,6 +4691,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("bparity"):
+
+            clock.mark("bparity")
             print("[bparity] the baselines, card == CPU; seeded repeatability",
                   flush=True)
             report["bparity"] = baselines_parity_phase(torch)
@@ -4661,6 +4700,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("lm-baselines"):
+
+            clock.mark("lm-baselines")
             print(f"[lm-baselines] splitfed and fedavg on {LM_BASELINES['arch']} "
                   f"full config, {LM_BASELINES['rounds']} rounds", flush=True)
             report["lm_baselines"] = lm_baselines_phase(torch, dev)
@@ -4669,6 +4710,7 @@ def main() -> int:
 
         for key in ("encdec", "moe", "vlm"):
             if want(key):
+                clock.mark(key)
                 c = ZOO_RUNS[key]
                 print(f"[{key}] {c['arch']} full width, "
                       f"{c['num_layers'] or 'all'} layers, M={c['M']}, b={c['b']}, "
@@ -4678,6 +4720,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
 
         if want("fparity"):
+
+            clock.mark("fparity")
             print(f"[fparity] smoke {', '.join(ZOO_PARITY_ARCHS)}: card == CPU",
                   flush=True)
             report["fparity"] = zoo_parity_phase(torch)
@@ -4685,6 +4729,7 @@ def main() -> int:
 
         for key in ("ssm-serve", "hybrid-serve"):
             if want(key):
+                clock.mark(key)
                 c = SERVE_RUNS[key]
                 print(f"[{key}] {c['arch']} full width/depth, M={c['M']}, "
                       "continuous engine", flush=True)
@@ -4695,6 +4740,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
 
         if want("sparity"):
+
+            clock.mark("sparity")
             print(f"[sparity] {', '.join(SPARITY_ARCHS)} full width, cut depth, "
                   "f32: continuous == sequential; card vs CPU logits", flush=True)
             t1 = time.perf_counter()
@@ -4703,6 +4750,8 @@ def main() -> int:
             print(f"[sparity] {time.perf_counter() - t1:.1f} s", flush=True)
 
         if want("moe-serve"):
+
+            clock.mark("moe-serve")
             c = SERVE_RUNS["moe-serve"]
             print(f"[moe-serve] {c['arch']} full width/depth, M={c['M']}, continuous "
                   "then sequential engine", flush=True)
@@ -4713,6 +4762,7 @@ def main() -> int:
 
         for key, c in SEQ_SERVE_RUNS.items():
             if want(key):
+                clock.mark(key)
                 print(f"[{key}] {c['arch']} full width/depth, M={c['M']}, b={c['b']}, "
                       "sequential engine", flush=True)
                 report[key] = seq_serve_phase(torch, key)
@@ -4722,6 +4772,8 @@ def main() -> int:
                 torch.cuda.empty_cache()
 
         if want("swa-serve"):
+
+            clock.mark("swa-serve")
             print(f"[swa-serve] {SWA_SERVE['arch']} full width/depth, ring caches, "
                   f"prompts {SWA_SERVE['prompt_lens']}", flush=True)
             report["swa-serve"] = swa_serve_phase(torch)
@@ -4730,6 +4782,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("xparity"):
+
+            clock.mark("xparity")
             print(f"[xparity] {', '.join(XPARITY_ARCHS)} full width, cut depth, f32: "
                   "card vs CPU logits and tokens", flush=True)
             t1 = time.perf_counter()
@@ -4738,6 +4792,8 @@ def main() -> int:
             print(f"[xparity] {time.perf_counter() - t1:.1f} s", flush=True)
 
         if want("graphs"):
+
+            clock.mark("graphs")
             print("[graphs] replayed steps vs eager: f32 at cut depth, bf16 at full "
                   "width", flush=True)
             t1 = time.perf_counter()
@@ -4747,6 +4803,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         if want("ckpt"):
+
+            clock.mark("ckpt")
             print(f"[ckpt] {CKPT['arch']} full config, adamw, {CKPT['resume_at']} "
                   f"+ {CKPT['rounds'] - CKPT['resume_at']} rounds resumed vs "
                   f"{CKPT['rounds']}; then served", flush=True)
@@ -4771,8 +4829,12 @@ def main() -> int:
                 ("mesh", mesh_phase, f"{SYS_ARCH} --mesh data=1 over NCCL; data="
                  f"{MESH_RUN['world']} on the shared card over gloo (mtsl, the six "
                  f"baselines, {MESH_LM['arch']}); a data={MESH_RUN['world']} "
-                 "checkpoint resumed")):
+                 "checkpoint resumed"),
+                ("dryrun", lambda torch, dev: dryrun_phase(torch),
+                 "launch/dryrun.py on the meta device, ASSIGNED x INPUT_SHAPES "
+                 f"within {DRYRUN_BUDGET_S:.0f} s")):
             if want(key):
+                clock.mark(key)
                 print(f"[{key}] {what}", flush=True)
                 t1 = time.perf_counter()
                 report[key] = fn(torch, dev)
@@ -4780,10 +4842,13 @@ def main() -> int:
                 print(f"{key.upper()} " + json.dumps(report[key]), flush=True)
                 print(f"[{key}] {report[key]['phase_s']:.1f} s", flush=True)
                 torch.cuda.empty_cache()
+        clock.mark(None)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
-        return _fail("a phase failed")
+        return _fail(f"phase {clock.current} failed")
     if want.partial:  # a subset of the phases: no result line
+        print("PHASE_SECONDS " + json.dumps({k: round(v, 1) for k, v in
+                                             clock.seconds.items()}), flush=True)
         print(f"chip_smoke: phases {sorted(want.only)} passed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return 0
@@ -4829,6 +4894,8 @@ def main() -> int:
                                      "cross": got["k4_cross"]}
     k2["serve_launches"] = {key: {"cross": got["k2_cross"], "bidir": got["k2_bidir"]}
                             for key, got in zoo_serve.items()}
+    print("PHASE_SECONDS " + json.dumps({k: round(v, 1) for k, v in
+                                         clock.seconds.items()}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)
     print(json.dumps({"kernels": [k4, k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {

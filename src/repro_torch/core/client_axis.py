@@ -39,7 +39,10 @@ block size), as the reference's devices each scan c/D of a chunk's c.
 map (eval, no gradient). The policy is read when a round RUNS (there is
 no trace): `core.algorithms.shard_round_fn(client_chunk=, mesh=)` enters
 the context around each call. Nothing here touches global torch state;
-`COLLECTIVES` counts the collectives' calls, bytes and host seconds.
+`COLLECTIVES` counts the collectives' calls, bytes and host seconds. A
+group over a `utils.collectives.DryRunGroup` (the dry-run's) exchanges
+nothing: each collective is counted, recorded in the group's `ops` and
+returns a tensor of the real collective's shape.
 """
 from __future__ import annotations
 
@@ -118,11 +121,20 @@ def _count(kind: str, nbytes: int, t0: float) -> None:
     rec[2] += time.perf_counter() - t0
 
 
-def _all_reduce(flat: torch.Tensor, op: str, group) -> torch.Tensor:
-    import torch.distributed as dist
+def _dry_run(group) -> bool:
+    from repro_torch.utils.collectives import DryRunGroup
 
+    return isinstance(group.group, DryRunGroup)
+
+
+def _all_reduce(flat: torch.Tensor, op: str, group) -> torch.Tensor:
     t0 = time.perf_counter()
-    dist.all_reduce(flat, op=getattr(dist.ReduceOp, op), group=group.group)
+    if _dry_run(group):
+        group.group.record("all-reduce", flat, flat.shape)
+    else:
+        import torch.distributed as dist
+
+        dist.all_reduce(flat, op=getattr(dist.ReduceOp, op), group=group.group)
     _count("all_reduce", flat.numel() * flat.element_size(), t0)
     return flat
 
@@ -176,7 +188,10 @@ def gather_clients(t: torch.Tensor) -> torch.Tensor:
 
     t0 = time.perf_counter()
     x = t.detach().contiguous()
-    if dist.get_backend(g.group) == "nccl":
+    if _dry_run(g):
+        out = x.new_empty((g.size * x.shape[0],) + tuple(x.shape[1:]))
+        g.group.record("all-gather", x, out.shape)
+    elif dist.get_backend(g.group) == "nccl":
         out = x.new_empty((g.size * x.shape[0],) + tuple(x.shape[1:]))
         dist.all_gather_into_tensor(out, x, group=g.group)
     else:

@@ -18,10 +18,17 @@ are of two kinds.
     these counts from what a capture recorded. A step's warm-up before
     its capture is not one of the steps served: `serve/graphs.py` puts
     the tables back after it (`save` / `restore`, in stream order).
+
+A third record serves the dry-run (`launch/dryrun.py`), which runs a
+program on the meta device: `META`, the calls each kernel's wrapper
+took on meta tensors, with the cost its model gives each call
+(`KernelCost`: FLOPs, bytes moved, workspace bytes). A wrapper given
+meta tensors allocates its outputs there, adds the call to `META` and
+launches nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -89,3 +96,47 @@ class DeviceCounts:
                 t.copy_(saved[dev])
             else:
                 t.zero_()
+
+
+class KernelCost(NamedTuple):
+    """One call of a kernel, from its shapes: the operations it does, the
+    bytes it must move (each input read once, each output written once)
+    and the scratch it allocates for the call."""
+
+    flops: int
+    bytes: int
+    workspace_bytes: int = 0
+
+
+class MetaTally:
+    """Calls of each kernel on the meta device since the last reset: by
+    kernel name, {"launches", "flops", "bytes", "workspace_bytes"} (the
+    largest workspace of one call), "leaves" (K1's table rows) and
+    "by_key", the launches by the mode or path the wrapper names, as its
+    counters on the card keep them."""
+
+    def __init__(self):
+        self.by_kernel: Dict[str, Dict[str, int]] = {}
+
+    def add(self, kernel: str, cost: KernelCost, key: str = "",
+            leaves: int = 0) -> None:
+        rec = self.by_kernel.setdefault(
+            kernel, {"launches": 0, "flops": 0, "bytes": 0, "workspace_bytes": 0,
+                     "leaves": 0, "by_key": {}})
+        rec["launches"] += 1
+        rec["leaves"] += leaves
+        if key:
+            rec["by_key"][key] = rec["by_key"].get(key, 0) + 1
+        rec["flops"] += int(cost.flops)
+        rec["bytes"] += int(cost.bytes)
+        rec["workspace_bytes"] = max(rec["workspace_bytes"], int(cost.workspace_bytes))
+
+    def launches(self, kernel: str, key: str = "") -> int:
+        rec = self.by_kernel.get(kernel, {})
+        return rec.get("by_key", {}).get(key, 0) if key else rec.get("launches", 0)
+
+    def reset(self) -> None:
+        self.by_kernel = {}
+
+
+META = MetaTally()

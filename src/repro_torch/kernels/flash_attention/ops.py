@@ -13,7 +13,10 @@ take) and runs the plain version (`ref.mha_reference`) on CPU tensors;
 the backward recomputes through the plain version and differentiates it,
 as the reference's custom_vjp does (`ops.py:41-45`). The kernel reads q,
 k and v through their strides, so unlike the reference wrapper nothing is
-transposed.
+transposed. On meta tensors (the dry-run, `launch/dryrun.py`) the forward
+allocates its output there and adds the call and its cost
+(`attention_cost`) to `kernels.counts.META`; the backward recomputes
+through the plain version on meta, as it does on the card.
 
 Launch counters: `flash_attention.launches` counts every launch;
 `.launches_cross` the ones the caller made as cross attention
@@ -29,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
-from repro_torch.kernels.counts import register
+from repro_torch.kernels.counts import META, KernelCost, register
 from repro_torch.kernels.flash_attention.ref import mha_grouped, mha_reference
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -52,6 +55,39 @@ def tile_config(D: int) -> tuple:
         raise ValueError(f"flash_attention: no tiles for D={D}")
     dp = -(-D // 64) * 64
     return dp, (128 if dp <= 128 else 64)
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, per head: all Sq x Sk
+    without the causal mask (the paths' non-causal calls have no window),
+    else those of a causal (+ window) mask over Sq = Sk."""
+    if not causal:
+        return Sq * Sk
+    S = Sq
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_cost(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, D: int,
+                   causal: bool, window: int, itemsize: int) -> KernelCost:
+    """One forward call's cost: q and the output [B, Sq, Hq, D], k and v
+    [B, Sk, Hkv, D] each moved once; two products of 2 D operations for
+    every visible (query, key) pair of every query head. No workspace."""
+    return KernelCost(
+        flops=4 * D * Hq * B * visible_pairs(Sq, Sk, causal, window),
+        bytes=2 * (B * Sq * Hq * D + B * Sk * Hkv * D) * itemsize)
+
+
+def _meta_call(q, k, causal: bool, window: int, cross: bool) -> torch.Tensor:
+    """The dry-run's call on meta tensors: the output, and the call in
+    META by the mode the counters on the card keep."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    META.add("flash_attention", attention_cost(B, Sq, Sk, Hq, Hkv, D, causal,
+                                               window, q.element_size()),
+             "cross" if cross else "causal" if causal else "bidir")
+    return torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,6 +169,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, cross):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
+        if q.is_meta:
+            return _meta_call(q, k, causal, window, cross)
         if q.is_cuda:
             return _launch(q, k, v, causal, window, cross)
         return mha_reference(q, k, v, causal=causal, window=window)

@@ -4,7 +4,10 @@ Model code calls flash_decode(q, k, v, kv_valid=...) in the cache layout
 ([B, 1, Hq, D] query, [B, cap, Hkv, D] cache), as in the reference's
 `repro.kernels.flash_decode.ops`. CPU tensors go to the plain version in
 `ref.py`; CUDA tensors go to the hand-written kernel, or the wrapper
-raises. The kernel reads the cache through its strides, so unlike the
+raises. Meta tensors (the dry-run, `launch/dryrun.py`) get their output
+and the bf16 path's partials there, and the call and its cost
+(`decode_cost`, over a full cache: the dry-run decodes the last position
+of its cache) go to `kernels.counts.META` by mode. The kernel reads the cache through its strides, so unlike the
 reference wrapper nothing is transposed.
 
 The bf16 kernel splits the cache into fixed runs of SPLIT_ROWS rows and
@@ -29,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
-from repro_torch.kernels.counts import DeviceCounts
+from repro_torch.kernels.counts import META, DeviceCounts, KernelCost
 from repro_torch.kernels.flash_decode.ref import decode_reference, per_row
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -56,6 +59,36 @@ def split_plan(B: int, Hkv: int, cap: int, G: int, D: int) -> dict:
     splits = -(-cap // SPLIT_ROWS)
     return {"splits": splits, "partials": (B, Hkv, splits, G, D + 2),
             "counters": (B * Hkv,)}
+
+
+def decode_cost(B: int, cap: int, Hq: int, Hkv: int, D: int, visible: int,
+                dtype) -> KernelCost:
+    """One call's cost over `visible` live (row, cache row) pairs in all:
+    their keys and values, q and the output [B, 1, Hq, D] moved once, and
+    kv_valid and q_offset (int32 [B]); two products of 2 D operations for
+    every visible key of every query head. Workspace: the bf16 path's
+    f32 partials (`split_plan`)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * visible * Hkv * D + 2 * B * Hq * D) * elt + 2 * 4 * B
+    work = 0
+    if dtype == torch.bfloat16:
+        b, h, s, g, d = split_plan(B, Hkv, cap, Hq // Hkv, D)["partials"]
+        work = 4 * b * h * s * g * d
+    return KernelCost(flops=4 * visible * Hq * D, bytes=nbytes, workspace_bytes=work)
+
+
+def _meta_call(q, k, window: int, mode: str) -> torch.Tensor:
+    """The dry-run's call on meta tensors, over a full cache (every row
+    sees min(cap, window) keys): the output, the partials, and the call
+    in META by mode."""
+    B, _, Hq, D = q.shape
+    cap, Hkv = k.shape[1], k.shape[2]
+    visible = B * (min(cap, window) if window else cap)
+    META.add("flash_decode", decode_cost(B, cap, Hq, Hkv, D, visible, q.dtype), mode)
+    if q.dtype == torch.bfloat16:
+        torch.empty(split_plan(B, Hkv, cap, Hq // Hkv, D)["partials"],
+                    dtype=torch.float32, device=q.device)
+    return torch.empty_like(q)
 
 
 def _counters(device, stream, n: int) -> torch.Tensor:
@@ -159,6 +192,8 @@ def flash_decode(
     function for all three."""
     if mode not in MODES:
         raise ValueError(f"flash_decode: mode must be one of {MODES}, got {mode!r}")
+    if q.is_meta:
+        return _meta_call(q, k, int(window), mode)
     if not q.is_cuda:
         return decode_reference(q, k, v, kv_valid=kv_valid, q_offset=q_offset,
                                 window=window)

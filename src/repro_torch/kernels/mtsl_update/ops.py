@@ -9,7 +9,9 @@ updated in its own storage, the port's analogue of the reference's buffer
 donation. g may have any strides (a conv weight's gradient comes back
 permuted from the HWIO <-> OIHW view): a strided g is copied to p's layout
 first. CPU tensors go to the plain version in `ref.py`; CUDA tensors go to
-the hand-written kernel, or the wrapper raises.
+the hand-written kernel, or the wrapper raises. Meta tensors (the
+dry-run, `launch/dryrun.py`) launch nothing: the call and its cost
+(`update_cost`) go to `kernels.counts.META`, and p stays as it is.
 
     mtsl_update_multi_(ps, gs, etas)   # every leaf, in one launch
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
-from repro_torch.kernels.counts import register
+from repro_torch.kernels.counts import META, KernelCost, register
 from repro_torch.kernels.mtsl_update.ref import eta_rows, mtsl_update_reference
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mtsl_update.cu",)
@@ -41,6 +43,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PIECE = 8192  # kPiece in the source: elements per piece of a leaf
 # columns of a leaf_table row (LeafDesc in the source)
 TABLE_COLUMNS = ("p", "g", "eta", "n", "row_len", "piece0", "dtype", "vector")
+
+
+def update_cost(numel: int, itemsize: int, leaves: int = 1) -> KernelCost:
+    """One call's cost over `leaves` leaves of `numel` elements in all, of
+    `itemsize` bytes: p and g read and p written once (3 * numel *
+    itemsize bytes, the step sizes' few bytes left out), a multiply and a
+    subtract an element, and the leaf table as workspace."""
+    return KernelCost(flops=2 * numel, bytes=3 * numel * itemsize,
+                      workspace_bytes=8 * len(TABLE_COLUMNS) * leaves)
+
+
+def _meta_call(fn, ps) -> None:
+    """The dry-run's record of one call on meta leaves (nothing runs)."""
+    leaves = [p for p in ps if p.numel()]
+    if not leaves:
+        return
+    cost = [update_cost(p.numel(), p.element_size()) for p in leaves]
+    META.add(fn.__name__, KernelCost(sum(c.flops for c in cost),
+                                     sum(c.bytes for c in cost),
+                                     8 * len(TABLE_COLUMNS) * len(leaves)),
+             leaves=len(leaves))
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +148,9 @@ def mtsl_update_multi_(ps: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
     launch on CUDA tensors (see the module docstring); returns ps."""
     if not ps:
         return ps
+    if ps[0].is_meta:
+        _meta_call(mtsl_update_multi_, ps)
+        return ps
     if not ps[0].is_cuda:
         with torch.no_grad():
             for p, g, eta in zip(ps, gs, etas, strict=True):
@@ -141,6 +167,9 @@ def mtsl_update_multi_(ps: Sequence[torch.Tensor], gs: Sequence[torch.Tensor],
 def mtsl_update_(p: torch.Tensor, g: torch.Tensor, eta) -> torch.Tensor:
     """p <- p - eta * g in place (see the module docstring): one leaf, as a
     table of one row; returns p."""
+    if p.is_meta:
+        _meta_call(mtsl_update_, [p])
+        return p
     if not p.is_cuda:
         with torch.no_grad():
             return p.copy_(mtsl_update_reference(p, g, eta))

@@ -10,7 +10,10 @@ tensors (or raises on one it cannot take), a nonzero `initial_state`
 included (the reference wrapper sends that case to its oracle), and runs
 the plain version (`ref.ssd_reference`) on CPU tensors; the backward
 recomputes through the plain version and differentiates it, as the
-reference's custom_vjp does (`ops.py:30-38`).
+reference's custom_vjp does (`ops.py:30-38`). On meta tensors (the
+dry-run, `launch/dryrun.py`) the forward allocates its outputs and the
+tensor-core path's ring there and adds the call and its cost
+(`scan_cost`) to `kernels.counts.META`, by the path `scan_plan` picks.
 
 The kernel has two hand-written paths, and `scan_plan` picks one from the
 shapes and the dtype: bf16 with P and N multiples of 16 takes the
@@ -35,7 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import load_cuda_library
-from repro_torch.kernels.counts import DeviceCounts
+from repro_torch.kernels.counts import META, DeviceCounts, KernelCost
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
 _KERNELS = Path(__file__).resolve().parents[1]
@@ -89,6 +92,36 @@ def scan_plan(B: int, L: int, H: int, P: int, N: int, dtype) -> dict:
     smem = 4 * (2 * T * (N + 1) + T * (P + 1) + T * (T + 1) + P * (N + 1) + 3 * T)
     return {"path": "fma", "T": T, "G": 1, "chunks": -(-L // T), "grid": (H, B),
             "smem_bytes": smem, "ring": None, "counters": None}
+
+
+def scan_cost(B: int, L: int, H: int, P: int, N: int, chunk: int, dtype,
+              with_state: bool) -> KernelCost:
+    """One forward call's cost: x and y [B, L, H, P] and Bm, Cm [B, L, N] in
+    `dtype`, dt [B, L, H] and A [H] in f32, the final state [B, H, P, N]
+    f32 (and the initial one when given) each moved once; the chunked
+    scan's products per chunk of `chunk` positions. Workspace: the
+    tensor-core path's f32 ring (`scan_plan`)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * L * H * P + 2 * B * L * N) * elt + 4 * (B * L * H + H) \
+        + 4 * B * H * P * N * (2 if with_state else 1)
+    flops = B * H * 2 * L * (chunk * N + chunk * P // 2 + 2 * P * N)
+    ring = scan_plan(B, L, H, P, N, dtype)["ring"]
+    work = 0 if ring is None else 4 * ring[0] * ring[1] * ring[2] * ring[3]
+    return KernelCost(flops=flops, bytes=nbytes, workspace_bytes=work)
+
+
+def _meta_call(x, Bm, chunk: int, h0):
+    """The dry-run's call on meta tensors: y, the final state and the
+    ring, and the call in META by its path."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    plan = scan_plan(B, L, H, P, N, x.dtype)
+    META.add("ssd_scan", scan_cost(B, L, H, P, N, chunk, x.dtype, h0 is not None),
+             plan["path"])
+    if plan["ring"] is not None:
+        torch.empty(plan["ring"], dtype=torch.float32, device=x.device)
+    return (torch.empty_like(x),
+            torch.empty((B, H, P, N), dtype=torch.float32, device=x.device))
 
 
 def _counters(device, stream, n: int) -> torch.Tensor:
@@ -183,6 +216,8 @@ class _SSDScan(torch.autograd.Function):
         ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)  # an unused output's grad is None
+        if x.is_meta:
+            return _meta_call(x, Bm, chunk, initial_state)
         if x.is_cuda:
             return _launch(x, dt, A, Bm, Cm, initial_state)
         return ssd_reference(x, dt, A, Bm, Cm, chunk=chunk,

@@ -37,6 +37,15 @@ prints, each from one initial state and the same numpy batches:
           the round at which each run first goes non-finite and, per
           package, how many of the runs did. `overflow:R:i-j` runs R
           rounds of inits i..j (default 15 rounds, inits 0-8).
+  settle  chip_smoke.py's baselines setting at another rate (default lr
+          0.01, the rate bparity and mesh use) for all six baselines:
+          each package from the reference's init (PRNGKey(0)), breadth
+          first, the loss of each after every round and whether the loss
+          and every parameter are finite; at the end, per baseline and
+          package, finite throughout and last loss below the first
+          (FedEM's round loss is 0 in both packages, so its line gives
+          the port's held-out mixture NLL at init and at the end).
+          `settle:R:lr` runs R rounds at lr (default 15, 0.01).
 """
 import itertools
 import sys
@@ -307,6 +316,78 @@ def overflow(rounds=15, inits="0-8"):
         print(f"overflow {name}: {sum(r is not None for r in rs)} of {len(rs)} "
               f"runs non-finite within {rounds} rounds (first non-finite round "
               f"per init {rs})", flush=True)
+
+
+def _mixture_nll(model, state, batch):
+    """FedEM's held-out loss: sum over tasks of the mean -log of the
+    pi-weighted mixture's probability of the label (the port's state)."""
+    comps, pi = state
+    M = pi.shape[0]
+    with torch.no_grad():
+        flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()
+                if k != "label"}
+        probs = torch.stack([torch.softmax(model.server_forward(
+            c["server"], model.tower_forward(c["tower"], flat))[0].float(), -1)
+            for c in [tree_map(lambda x, k=k: x[k], comps)
+                      for k in range(pi.shape[1])]])
+        mixed = torch.einsum("kmbc,mk->mbc", probs.reshape(
+            probs.shape[0], M, -1, probs.shape[-1]), pi)
+        label = batch["label"].long()
+        p = mixed.gather(-1, label[..., None])[..., 0]
+        return float(-torch.log(p).mean(1).sum())
+
+
+def settle(rounds=15, lr=0.01):
+    cfg = get_config("paper-resnet16")
+    M, b, ls, lr = cfg.num_clients, 8, 30, float(lr)
+    model_j = jax_build_model(jax_get_config("paper-resnet16"))
+    model = build_model(cfg)
+    src = MultiTaskImageSource(num_classes=M, image_size=cfg.image_size,
+                               channels=cfg.image_channels, seed=0)
+    batches = list(client_batches(src, b * ls, steps=int(rounds), seed=0))
+    held = stage_batch(next(iter(client_batches(src, 64, steps=1, seed=123))), "cpu")
+    runs = []
+    for name in ("fedavg", "fedprox", "splitfed", "smofi", "parallelsfl", "fedem"):
+        hp_j = jax_alg.HParams(lr=lr, local_steps=ls)
+        alg_j = jax_alg.get_algorithm(name)
+        init_j = jax.tree.map(np.asarray, jax.jit(
+            lambda k, a=alg_j, h=hp_j: a.init_state(model_j, k, M, h))(
+                jax.random.PRNGKey(0)))
+        port = state_from_jax(name, init_j, "cpu", cfg)
+        runs.append({"name": name, "ref": init_j, "port": port,
+                     "rf_j": jax_alg.jit_round_fn(alg_j, model_j, M, hp_j),
+                     "rf": alg_mod.get_algorithm(name).round_fn(
+                         model, M, alg_mod.HParams(lr=lr, local_steps=ls)),
+                     "losses": {"reference": [], "port": []},
+                     "finite": {"reference": True, "port": True},
+                     "nll0": _mixture_nll(model, port, held) if name == "fedem"
+                     else None})
+    for r, batch in enumerate(batches):
+        for run in runs:
+            run["ref"], met_j = run["rf_j"](run["ref"], batch,
+                                            jax_schedule.full_schedule(M, ls))
+            run["port"], met = run["rf"](run["port"], stage_batch(batch, "cpu"),
+                                         schedule.full_schedule(M, ls))
+            ok_j = _finite([met_j["loss"]] + jax.tree.leaves(run["ref"]))
+            ok = _finite([met["loss"].detach()]
+                         + [x.detach() for x in P._leaves_port(run["port"]).values()])
+            for pkg, fine, loss in (("reference", ok_j, met_j["loss"]),
+                                    ("port", ok, met["loss"])):
+                run["finite"][pkg] &= fine
+                run["losses"][pkg].append(float(loss))
+            print(f"settle lr {lr} {run['name']} round {r + 1}: loss reference "
+                  f"{float(met_j['loss']):.4f} finite {ok_j}, port "
+                  f"{float(met['loss']):.4f} finite {ok}", flush=True)
+    for run in runs:
+        for pkg in ("reference", "port"):
+            ls_ = run["losses"][pkg]
+            print(f"settle lr {lr} {run['name']} {pkg}: finite {run['finite'][pkg]}, "
+                  f"loss {ls_[0]:.4f} -> {ls_[-1]:.4f}, falls {ls_[-1] < ls_[0]}",
+                  flush=True)
+        if run["nll0"] is not None:
+            print(f"settle lr {lr} fedem port held-out mixture NLL "
+                  f"{run['nll0']:.4f} -> {_mixture_nll(model, run['port'], held):.4f}",
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -174,10 +174,11 @@ def _dense(cell):
     return losses, flat_state(state), ev
 
 
-def _sharded(cell, mesh, world):
+def _sharded(cell, mesh, world, tally=None):
     """The sharded round on `mesh`: (losses, gathered state, eval, the
     largest gap between this rank's gathered state and every other
-    rank's)."""
+    rank's). `tally`, when given, gets the rounds' collective stats
+    (`core.client_axis.collective_stats`)."""
     import torch.distributed as dist
 
     from repro_torch.core.algorithms import (
@@ -187,7 +188,8 @@ def _sharded(cell, mesh, world):
         place_algorithm_state,
         shard_round_fn,
     )
-    from repro_torch.core.client_axis import client_axis
+    from repro_torch.core.client_axis import (client_axis, collective_stats,
+                                              reset_collectives)
     from repro_torch.train.loop import stage_batch
     from repro_torch.utils.sharding import client_axis_size, client_group
 
@@ -199,9 +201,12 @@ def _sharded(cell, mesh, world):
     state = place_algorithm_state(alg, cell["init"], mesh)
     batch = stage_batch(cell["batch"], "cpu")
     losses = []
+    reset_collectives()
     for _ in range(cell["rounds"]):
         state, m = rf(state, batch, _schedule(cell["sched"]))
         losses.append(float(m["loss"]))
+    if tally is not None:
+        tally.update(collective_stats())
     ev = None
     if cfg.family in ("mlp", "resnet"):
         group = client_group(mesh)
@@ -235,7 +240,8 @@ def rounds_task(rank, world, payload):
         res = {}
         if rank == 0 and cell.get("dense", True):
             res["dense"] = _dense(cell)
-        res["mesh"] = _sharded(cell, meshes[cell["mesh"]], world)
+        res["collectives"] = {}
+        res["mesh"] = _sharded(cell, meshes[cell["mesh"]], world, res["collectives"])
         out["cells"][key] = res
         dist.barrier()
     return out
