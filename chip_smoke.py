@@ -299,6 +299,18 @@ Phases, each of which must pass (any failure exits non-zero):
           in ring mode (44 per step), cache capacities (4,096 on the ring,
           prompt + new otherwise), tokens; reports the leading tokens the
           ring and the full caches share (bf16: not asserted).
+  chunked  attn_impl="chunked": K2 against the port's mha_chunked at
+          swa-serve's prefill shapes (B 2, S 4,064 and 4,608, GQA 32 / 8,
+          D 128, window 4,096, bf16 within 2e-2; B 1, S 4,608 in f32
+          within 2e-5; two launches bit-equal; ms beside the bound,
+          mha_chunked and SDPA with the window as a mask); then
+          swa-serve's sequential engine through `launch.serve.run_bench`
+          at "ref" and "chunked" on one set of weights (prompt 4,064, 64
+          new): prefill ms and peak GiB of each; under chunked K2
+          launches == 2 x the prefill's attention layers (the warm-up's
+          and the timed prefill) and no plain attention, under ref the
+          reverse; then f32 prefill logits at 2 layers (prompt 4,608,
+          past the window), chunked vs ref within 2e-5 of their scale.
   xparity  the four configs of the new serving paths in f32 at full width
           (TF32 off): deepseek-moe-16b at 3 layers (split 2, the tower
           holding an MoE layer; capacity factor 8.0, the smoke configs'
@@ -356,8 +368,8 @@ Phases, each of which must pass (any failure exits non-zero):
           once a round (17 leaves); mamba2-130m's full config (M = 4, b =
           4, S = 256, adamw 3e-3, the 4096-token source) 5 rounds at both
           depths: bit-equal, K3 counted on the card equal at both depths
-          (every launch tensor-core), K1 once a round. Then rounds/s of 20
-          resnet16 rounds at depths 0, 2, 2, 0 and the busy share of 10
+          (every launch tensor-core), K1 once a round. Then rounds/s of 10
+          resnet16 rounds at depths 0, 2, 2, 0 and the busy share of 5
           profiled rounds at each depth, with the default convolutions;
           and the host's synthesis ms a round alone, resnet16's and the
           LM's.
@@ -417,7 +429,17 @@ Phases, each of which must pass (any failure exits non-zero):
           seconds in collectives a round, per rank: on one shared card
           this is the path's cost, not a scaling. The dry-run of one
           data=2 mtsl round of one rank must all-reduce the bytes each
-          rank all-reduced a round (526,900) and launch K1 once.
+          rank all-reduced a round (526,900) and launch K1 once. Last,
+          deepseek-moe-16b (MESH_MOE: its widths, 3 layers, a tower MoE
+          layer, vocabulary 4,096, f32, 2 rounds) on data=2 at moe_groups
+          1, one dispatch group over both ranks' tokens: the rows kept
+          and routed, summed over the ranks (the dispatch tally), equal
+          the unsharded run's; losses and the gathered parameters within
+          1e-5; the counts all-gathered a round per rank reported.
+  examples  examples/torch_quickstart.py at --steps EXAMPLES_STEPS on the
+          card (fedavg one round of 100 local steps, mtsl 4 rounds): K1
+          once a local step and once a round (104), no plain update; its
+          lines printed.
   dryrun  launch/dryrun.py in-process at its default mesh (data=16,
           model=16): ASSIGNED x INPUT_SHAPES on the meta device, the
           serving programs first, then the train programs from the
@@ -677,6 +699,17 @@ SEQ_SERVE_RUNS = {
 # rolled prefill)
 SWA_SERVE = {"arch": "mistral-nemo-12b-swa", "M": 2, "b": 1, "new_tokens": 64,
              "prompt_lens": (4064, 4608)}
+# chunked: K2 against the port's mha_chunked at swa-serve's prefill
+# shapes (the server's rows, then a tower's in f32); swa-serve's
+# sequential engine at attn_impl="chunked" beside "ref" (its prompt L0);
+# f32 prefill logits "chunked" vs "ref" at cut depth (L1, past the window)
+CHUNKED_CASES = [  # (case, B, S, dtype)
+    ("swa_prefill_4064", 2, 4064, "bfloat16"),
+    ("swa_prefill_4608", 2, 4608, "bfloat16"),
+    ("swa_prefill_4608_f32", 1, 4608, "float32"),
+]
+CHUNKED_PARITY = {"num_layers": 2, "split_layers": 1}
+CHUNKED_LOGITS_TOL = 2e-5  # chunked vs ref prefill logits, of max(1, max |logit|)
 # xparity: full width, f32, cut depth (whisper-tiny whole); the MoE at the
 # smoke configs' no-drop capacity factor, the ring at a window of 64
 XPARITY_ARCHS = {  # (the MoE and the ring at 4 layers, split 2, before
@@ -3128,6 +3161,138 @@ def swa_serve_phase(torch):
     return res
 
 
+def chunked_phase(torch, dev):
+    """chunked (see the module docstring): K2 against the port's
+    mha_chunked at swa-serve's prefill shapes; swa-serve through the
+    sequential engine at attn_impl="chunked" beside "ref", on the same
+    weights; f32 prefill logits of the two at cut depth."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention_cost, flash_attention
+    from repro_torch.kernels.flash_attention.ref import attn_mask, mha_chunked
+    from repro_torch.launch import serve
+    from repro_torch.launch.hardware import bound_ms
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine, stage_inputs
+
+    c = SWA_SERVE
+    cfg = get_config(c["arch"])
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window, chunk = cfg.sliding_window, cfg.attn_chunk
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tol = {"bfloat16": 2e-2, "float32": 2e-5}
+    rows = []
+    for name, B, S, dt in CHUNKED_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
+                   for h in (Hq, Hkv, Hkv))
+        n0 = flash_attention.launches
+        out = flash_attention(q, k, v, True, window, chunk=chunk)
+        again = flash_attention(q, k, v, True, window, chunk=chunk)
+        plain = mha_chunked(q, k, v, causal=True, window=window, chunk=chunk)
+        torch.cuda.synchronize()
+        if flash_attention.launches - n0 != 2 or not torch.equal(out, again):
+            raise AssertionError(f"chunked {name}: {flash_attention.launches - n0} K2 "
+                                 "launches for 2 calls, or two launches differ")
+        err = (out.float() - plain.float()).abs().max().item()
+        if not _allclose(out, plain, tol[dt]):
+            raise AssertionError(f"chunked {name}: K2 vs mha_chunked beyond {tol[dt]} "
+                                 f"(abs + rel; max |diff| {err})")
+        cost = attention_cost(B, S, S, Hq, Hkv, D, True, window, q.element_size())
+        bound, bound_by = bound_ms(cost.flops, cost.bytes, dt)
+        qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        amask = attn_mask(S, S, causal=True, window=window, device=dev)
+        row = {"case": name, "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "D": D,
+               "window": window, "chunk": chunk, "dtype": dt, "max_abs_err": err,
+               "repeat_bit_equal": True,
+               "ms": _median_ms(lambda: flash_attention(q, k, v, True, window,
+                                                        chunk=chunk), 10, flush),
+               "plain_ms": _median_ms(lambda: mha_chunked(
+                   q, k, v, causal=True, window=window, chunk=chunk), 3, flush),
+               "library_ms": _median_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=amask, enable_gqa=True), 10, flush),
+               "bound_ms": bound, "bound_by": bound_by, "flops": cost.flops,
+               "bytes": cost.bytes}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"  K2 chunked {name}: err {err:.3g}  kernel {row['ms']:.4f} ms  "
+              f"mha_chunked {row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms  "
+              f"bound {bound:.4f} ms ({bound_by}, share {row['bound_share']:.3f})",
+              flush=True)
+        del q, k, v, out, again, plain, qs, ks, vs, amask
+    del flush
+    torch.cuda.empty_cache()
+
+    # swa-serve's sequential engine, "ref" then "chunked", on one set of
+    # weights; run_bench prefills twice (its warm-up generation and the
+    # timed prefill)
+    M, b, n = c["M"], c["b"], c["new_tokens"]
+    L0, L1 = c["prompt_lens"]
+    per_prefill = sum(M * v["attn"] if side == "tower" else v["attn"]
+                      for side, v in _serving_kinds(cfg).items())
+    params = serve.init_params(build_model(cfg), M, 0, "cuda")
+    bench = {}
+    for impl in ("ref", "chunked"):
+        icfg = cfg.with_updates(attn_impl=impl)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(torch)
+        t1 = time.perf_counter()
+        m = serve.run_bench(build_model(icfg), params, icfg, M, b, L0, n, "sequential",
+                            device="cuda")
+        torch.cuda.synchronize()
+        got = _read_counts(torch)
+        _check_tokens(m["outputs"], M * b, n, cfg.vocab_size, f"chunked {impl}")
+        bench[impl] = {"prefill_ms": m["prefill_ms"], "decode_tok_s": m["decode_tok_s"],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "counts": got, "s": time.perf_counter() - t1,
+                       "tokens": np.stack(m["outputs"])}
+    ref, ch = bench["ref"]["counts"], bench["chunked"]["counts"]
+    if not (ch["k2"] == 2 * per_prefill and ch["k2_plain"] == 0
+            and ref["k2"] == 0 and ref["k2_plain"] == 2 * per_prefill):
+        raise AssertionError(f"chunked swa-serve: K2 {ch['k2']} launches and "
+                             f"{ch['k2_plain']} plain calls under chunked, want "
+                             f"{2 * per_prefill} and 0; under ref {ref['k2']} and "
+                             f"{ref['k2_plain']}")
+    toks = [bench[i].pop("tokens") for i in ("ref", "chunked")]
+    del params
+    torch.cuda.empty_cache()
+
+    # f32 prefill logits at cut depth, past the window: chunked == ref
+    pcfg = cfg.with_updates(dtype="float32", **CHUNKED_PARITY)
+    pparams = serve.init_params(build_model(pcfg), M, 0, "cuda")
+    inputs = stage_inputs(serve.seeded_inputs(pcfg, M, b, L1, 0), "cuda")
+    logits = {}
+    for impl in ("ref", "chunked"):
+        eng = ServeEngine(build_model(pcfg.with_updates(attn_impl=impl)), pparams, M,
+                          L1 + n, device="cuda")
+        with torch.no_grad():
+            logits[impl] = eng._prefill(pparams, inputs)[0].float()
+        del eng
+    scale = max(1.0, logits["ref"].abs().max().item())
+    gap = (logits["chunked"] - logits["ref"]).abs().max().item()
+    if gap > CHUNKED_LOGITS_TOL * scale:
+        raise AssertionError(f"chunked f32 prefill logits: gap {gap} > "
+                             f"{CHUNKED_LOGITS_TOL} x {scale}")
+    del pparams, logits
+    res = {"arch": c["arch"], "k2_cases": rows, "bench": bench,
+           "k2_launches_per_prefill": per_prefill,
+           "leading_tokens_equal_ref_vs_chunked": [_lead(a, z) for a, z in zip(*toks)],
+           "parity": {"prompt_len": L1, **CHUNKED_PARITY, "logits_gap": gap,
+                      "logits_scale": scale},
+           "phase_s": time.perf_counter() - t0}
+    print(f"  chunked swa-serve prompt {L0}: prefill {bench['chunked']['prefill_ms']:.1f} "
+          f"ms, peak {bench['chunked']['peak_gib']:.2f} GiB (ref: "
+          f"{bench['ref']['prefill_ms']:.1f} ms, {bench['ref']['peak_gib']:.2f} GiB); "
+          f"K2 {per_prefill} launches a prefill; f32 logits gap {gap:.3g} (scale "
+          f"{scale:.3g})", flush=True)
+    return res
+
+
 def _greedy_logits(torch, eng, params, inputs, n, forced=None):
     """Prefill and n - 1 decode steps through the engine's own steps:
     (tokens [n, rows], logits [n, rows, V] on the host). Greedy, or fed
@@ -3642,10 +3807,11 @@ SYS_ARCH, SYS_B, SYS_LR = "paper-resnet16", 8, 0.1
 SYS_ROUNDS = 100
 SYS_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 3e-3,
           "data_vocab": 4096, "rounds": 5}
-# measurements only (50 and 20 before the dryrun phase came, for the
-# script's time limit)
-SYS_TIMED_ROUNDS = 20  # unprofiled rounds timed at each prefetch depth
-SYS_PROFILE_ROUNDS = 10  # profiled rounds at each prefetch depth
+# measurements only (50 and 20 before the dryrun phase came, 20 and 10
+# before the chunked, examples and mesh-MoE checks came, for the script's
+# time limit)
+SYS_TIMED_ROUNDS = 10  # unprofiled rounds timed at each prefetch depth
+SYS_PROFILE_ROUNDS = 5  # profiled rounds at each prefetch depth
 ASYNC_RUN = {"rounds": 20, "num_servers": 2, "sync_every": 2, "straggler_frac": 0.5,
              "staleness_decay": 0.5, "max_staleness": 4, "link_mbps": 10.0,
              "cut": 12}
@@ -3661,6 +3827,19 @@ MESH_RUN = {"nccl_rounds": 20, "nccl_lr": 0.1, "rounds": 10, "lr": 0.01,
 # 3 rounds (5 before the dryrun phase came, for the script's time limit)
 MESH_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 0.05,
            "rounds": 3, "data_vocab": 4096}
+# deepseek-moe-16b at its widths, 3 of 28 layers (the tower's dense lead
+# and MoE layer, the server's MoE layer, which dispatches across the
+# ranks) and a vocabulary of 4,096 (its embeddings at 102,400 made the
+# gloo all-reduce and the gathered state's file the phase's cost), f32,
+# at its default moe_groups = 1: one dispatch group over both ranks'
+# tokens; 2 rounds (4 layers and 3 rounds took 16.3 s a round per rank)
+MESH_MOE = {"arch": "deepseek-moe-16b", "M": 2, "b": 1, "S": 512, "lr": 0.05,
+            "rounds": 2, "data_vocab": 4096, "dtype": "float32",
+            "updates": {"num_layers": 3, "split_layers": 2, "vocab_size": 4096}}
+# examples: examples/torch_quickstart.py on the card at 1 % of the
+# reference example's steps (fedavg: one round of 100 local steps; mtsl:
+# 4 rounds)
+EXAMPLES_STEPS = 0.01
 
 
 def _launch(argv):
@@ -4142,10 +4321,10 @@ def _mesh_argv(rounds: int, lr: float, alg: str = "mtsl", local_steps: int = 1):
             "--batch-per-client", str(SYS_B), "--lr", str(lr), "--seed", "0"]
 
 
-def _mesh_lm(torch, mesh_spec, dtype=None, chunk=None):
-    """mamba2-130m's full config through train() (MESH_LM), in its own
-    dtype unless `dtype`, on a mesh of `mesh_spec` or over client blocks of
-    `chunk` when given."""
+def _mesh_lm(torch, mesh_spec, dtype=None, chunk=None, c=MESH_LM):
+    """An LM through train(): mamba2-130m's full config (MESH_LM) or the
+    cut MoE (MESH_MOE, `c`), in its own dtype unless `dtype`, on a mesh of
+    `mesh_spec` or over client blocks of `chunk` when given."""
     from repro_torch.configs import get_config
     from repro_torch.core.lr_policy import server_scaled
     from repro_torch.data.lm import MultiTaskLMSource
@@ -4155,9 +4334,8 @@ def _mesh_lm(torch, mesh_spec, dtype=None, chunk=None):
     from repro_torch.optim import sgd
     from repro_torch.train.loop import TrainConfig, train
 
-    c = MESH_LM
     M = c["M"]
-    cfg = get_config(c["arch"])
+    cfg = get_config(c["arch"]).with_updates(**c.get("updates", {}))
     if dtype:
         cfg = cfg.with_updates(dtype=dtype)
     mesh = make_mesh_from_spec(mesh_spec, "cuda") if mesh_spec else None
@@ -4177,12 +4355,17 @@ def _mesh_job(torch, job: dict, mesh_spec=None, chunk=None):
     collectives' tallies are set to 0 just before the run and read just
     after."""
     from repro_torch.core import client_axis
+    from repro_torch.models import moe
 
     _reset_counts(torch)
     client_axis.reset_collectives()
+    moe.moe_forward.tally = (torch.zeros(2, dtype=torch.int64, device="cuda")
+                             if job["kind"] == "moe" else None)
     t0 = time.perf_counter()
     if job["kind"] == "lm":
         state, hist = _mesh_lm(torch, mesh_spec, job.get("dtype"), chunk)
+    elif job["kind"] == "moe":
+        state, hist = _mesh_lm(torch, mesh_spec, MESH_MOE["dtype"], c=MESH_MOE)
     else:
         argv = list(job["argv"])
         if mesh_spec:
@@ -4194,10 +4377,15 @@ def _mesh_job(torch, job: dict, mesh_spec=None, chunk=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     times = [e["time"] for e in hist]
-    return {"losses": [e["loss"] for e in hist], "rounds": [e["round"] for e in hist],
-            "s_per_round": (times[-1] - times[0]) / max(hist[-1]["round"] - 1, 1),
-            "counts": _read_counts(torch), "wall_s": wall,
-            "collectives": client_axis.collective_stats()}, state
+    rows = moe.moe_forward.tally
+    moe.moe_forward.tally = None
+    out = {"losses": [e["loss"] for e in hist], "rounds": [e["round"] for e in hist],
+           "s_per_round": (times[-1] - times[0]) / max(hist[-1]["round"] - 1, 1),
+           "counts": _read_counts(torch), "wall_s": wall,
+           "collectives": client_axis.collective_stats()}
+    if rows is not None:  # (rows kept, rows routed) over the run's dispatches
+        out["moe_rows"] = rows.tolist()
+    return out, state
 
 
 def _mesh_jobs(folder) -> list:
@@ -4214,7 +4402,9 @@ def _mesh_jobs(folder) -> list:
     return jobs + [{"name": "lm", "kind": "lm", "steps": MESH_LM["rounds"],
                     "twin": MESH_LM["M"] // W},
                    {"name": "lm_f32", "kind": "lm", "dtype": "float32",
-                    "steps": MESH_LM["rounds"]}]
+                    "steps": MESH_LM["rounds"]},
+                   {"name": "moe", "kind": "moe", "steps": MESH_MOE["rounds"],
+                    "gathered": str(folder / "moe_gathered.pt")}]
 
 
 def _mesh_rank(rank: int, world: int, rdv: str, jobs: list, folder: str):
@@ -4328,6 +4518,8 @@ def mesh_phase(torch, dev):
                 plain[job["name"]], st = _mesh_job(torch, job)
                 if job["name"] == "mtsl":
                     states["plain"] = st
+                elif job["name"] == "moe":
+                    states["moe"] = st
                 del st
                 if "twin" in job:
                     twins[job["name"]], st = _mesh_job(torch, job, chunk=job["twin"])
@@ -4392,6 +4584,24 @@ def mesh_phase(torch, dev):
                                          f"{want['counts']['k3']}")
                 run.update(k3_launches_per_rank=k3,
                            k3_launches_no_mesh=want["counts"]["k3"])
+            if job["kind"] == "moe":
+                # one dispatch group over both ranks' tokens: the ranks keep
+                # and route, between them, the rows the unsharded run does,
+                # and its parameters hold to the same tolerance
+                rows = [sum(g["moe_rows"][i] for g in got) for i in (0, 1)]
+                whole = torch.load(job["gathered"], map_location=dev, weights_only=False)
+                pgap = _params_gap(whole, states.pop("moe"))
+                del whole
+                if rows != want["moe_rows"] or pgap > CHUNK_LOSS_TOL:
+                    raise AssertionError(f"mesh data=2 moe: rows kept, routed {rows} "
+                                         f"(per rank {[g['moe_rows'] for g in got]}) vs "
+                                         f"{want['moe_rows']} without the mesh, or "
+                                         f"parameter gap {pgap}")
+                run.update(moe_rows=rows, moe_rows_per_rank=[g["moe_rows"] for g in got],
+                           param_gap=pgap,
+                           all_gather_bytes_per_round=[
+                               g["collectives"]["all_gather"]["bytes"] / job["steps"]
+                               for g in got])
             for r, g in enumerate(got):
                 _check_k1(g["counts"], job["steps"], f"mesh data=2 {name} rank {r}")
             run["k1_launches_per_rank"] = [g["counts"]["k1"] for g in got]
@@ -4458,6 +4668,13 @@ def mesh_phase(torch, dev):
               f"{col['all_gather']['bytes']} B; host "
               f"{(col['all_reduce']['host_s'] + col['all_gather']['host_s']) / c['rounds']:.4f} "
               "s a round in collectives", flush=True)
+    moe = out["data2"]["runs"]["moe"]
+    print(f"  mesh moe (moe_groups 1): rows kept / routed {moe['moe_rows']} (per rank "
+          f"{moe['moe_rows_per_rank']}), the same without the mesh; loss gap "
+          f"{moe['loss_gap']:.3g}, parameter gap {moe['param_gap']:.3g}; "
+          f"{moe['s_per_round']} s a round per rank ({moe['s_per_round_no_mesh']:.4f} "
+          f"without); all-gathered {moe['all_gather_bytes_per_round']} B a round "
+          "per rank", flush=True)
     for name in ("lm", "lm_f32"):
         lm = out["data2"]["runs"][name]
         print(f"  mesh {name}: loss gap to the unsharded run {lm['loss_gap']:.4g} "
@@ -4466,6 +4683,39 @@ def mesh_phase(torch, dev):
               f"({lm['k3_launches_no_mesh']} without the mesh)", flush=True)
     print(f"  mesh steps: {json.dumps(out['step_s'])}", flush=True)
     return out
+
+
+def examples_phase(torch, dev) -> dict:
+    """examples (see the module docstring): examples/torch_quickstart.py
+    on the card at EXAMPLES_STEPS of the reference example's steps, K1
+    once a round (mtsl) and once a local step (fedavg)."""
+    import math
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+
+    _reset_counts(torch)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        runs = torch_quickstart.main(["--steps", str(EXAMPLES_STEPS)])
+    torch.cuda.synchronize()
+    got = _read_counts(torch)
+    # the same rounds as the example: fedavg's 2000 and mtsl's 400 steps
+    # scaled, fedavg's rounded up to whole rounds of 100 local steps
+    fed_steps = math.ceil(round(2000 * EXAMPLES_STEPS) / 100) * 100
+    mtsl_rounds = round(400 * EXAMPLES_STEPS)
+    _check_k1(got, fed_steps + mtsl_rounds, "examples quickstart")
+    for alg, r in runs.items():
+        if not 0.0 <= r.acc_mtl <= 1.0:
+            raise AssertionError(f"examples quickstart {alg}: acc_mtl {r.acc_mtl}")
+    lines = printed.getvalue().splitlines()
+    if not any(line.startswith("MTSL advantage:") for line in lines):
+        raise AssertionError(f"examples quickstart printed {lines}")
+    return {"steps": EXAMPLES_STEPS, "k1_launches": got["k1"],
+            "k1_want": {"fedavg_local_steps": fed_steps, "mtsl_rounds": mtsl_rounds},
+            "acc_mtl": {a: r.acc_mtl for a, r in runs.items()},
+            "wall_s": {a: r.wall_s for a, r in runs.items()},
+            "s": time.perf_counter() - t0, "lines": lines[-5:]}
 
 
 def dryrun_phase(torch) -> dict:
@@ -4529,8 +4779,8 @@ PHASES = ("kernel", "k1", "k2", "k3", "slice", "parity", "train", "tparity",
           "lm-train", "lm-learn", "lm-parity", "baselines", "bparity",
           "lm-baselines", "encdec", "moe", "vlm", "fparity", "ssm-serve",
           "hybrid-serve", "sparity", "moe-serve", "vlm-serve", "encdec-serve",
-          "swa-serve", "xparity", "graphs", "ckpt", "pipeline", "async", "cached",
-          "chunk", "mesh", "dryrun")
+          "swa-serve", "chunked", "xparity", "graphs", "ckpt", "pipeline", "async",
+          "cached", "chunk", "mesh", "examples", "dryrun")
 
 
 def _phases_wanted(argv):
@@ -4781,6 +5031,17 @@ def main() -> int:
             print(f"[swa-serve] {report['swa-serve']['phase_s']:.1f} s", flush=True)
             torch.cuda.empty_cache()
 
+        if want("chunked"):
+
+            clock.mark("chunked")
+            print(f"[chunked] K2 vs mha_chunked at {SWA_SERVE['arch']}'s prefill "
+                  "shapes; its sequential engine at attn_impl=chunked vs ref; f32 "
+                  "prefill logits at cut depth", flush=True)
+            report["chunked"] = chunked_phase(torch, dev)
+            print("CHUNKED " + json.dumps(report["chunked"]), flush=True)
+            print(f"[chunked] {report['chunked']['phase_s']:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+
         if want("xparity"):
 
             clock.mark("xparity")
@@ -4828,8 +5089,10 @@ def main() -> int:
                  f"{CHUNK_RUN['scan_M']}"),
                 ("mesh", mesh_phase, f"{SYS_ARCH} --mesh data=1 over NCCL; data="
                  f"{MESH_RUN['world']} on the shared card over gloo (mtsl, the six "
-                 f"baselines, {MESH_LM['arch']}); a data={MESH_RUN['world']} "
-                 "checkpoint resumed"),
+                 f"baselines, {MESH_LM['arch']}, {MESH_MOE['arch']} at moe_groups "
+                 f"1); a data={MESH_RUN['world']} checkpoint resumed"),
+                ("examples", examples_phase, "examples/torch_quickstart.py at "
+                 f"--steps {EXAMPLES_STEPS}"),
                 ("dryrun", lambda torch, dev: dryrun_phase(torch),
                  "launch/dryrun.py on the meta device, ASSIGNED x INPUT_SHAPES "
                  f"within {DRYRUN_BUDGET_S:.0f} s")):
@@ -4894,6 +5157,17 @@ def main() -> int:
                                      "cross": got["k4_cross"]}
     k2["serve_launches"] = {key: {"cross": got["k2_cross"], "bidir": got["k2_bidir"]}
                             for key, got in zoo_serve.items()}
+    # swa-serve's prefill at attn_impl="chunked": every prefill attention
+    # is a causal K2 launch (two prefills: run_bench's warm-up and timed)
+    ch = report["chunked"]
+    k2["serve_launches"]["swa-serve-chunked"] = {
+        "causal": ch["bench"]["chunked"]["counts"]["k2"],
+        "per_prefill": ch["k2_launches_per_prefill"]}
+    k2["chunked_prefill"] = [{key: row[key] for key in ("case", "S", "dtype", *keys)}
+                             for row in ch["k2_cases"]]
+    k1["examples_launches"] = report["examples"]["k1_launches"]
+    k1["mesh_launches"]["data2_moe_per_rank"] = mesh["data2"]["runs"]["moe"][
+        "k1_launches_per_rank"]
     print("PHASE_SECONDS " + json.dumps({k: round(v, 1) for k, v in
                                          clock.seconds.items()}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all", flush=True)

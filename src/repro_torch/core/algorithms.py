@@ -68,7 +68,6 @@ from repro_torch.core.mtsl import (
 from repro_torch.core.phases import PhaseProgram
 from repro_torch.core.schedule import full_schedule, local_schedule, schedule_tensors
 from repro_torch.core.split import replicate_tower
-from repro_torch.models.moe import rank_moe_groups
 from repro_torch.optim.optimizers import Optimizer, sgd
 from repro_torch.optim.per_component import ComponentLR
 from repro_torch.utils.sharding import (
@@ -174,19 +173,6 @@ def phase_program(alg: "Algorithm", model, num_clients: int,
     return alg.phases(model, num_clients, hp)
 
 
-def mesh_model(model, shards: int):
-    """`model` as a rank holding 1/`shards` of the client axis runs it: the
-    model itself, unless its MoE layers dispatch tokens in groups, which
-    the rank takes cfg.moe_groups/shards of (`models.moe.rank_moe_groups`,
-    which refuses a moe_groups that does not split so)."""
-    if shards == 1 or not model.cfg.num_experts:
-        return model
-    from repro_torch.models.registry import build_model
-
-    return build_model(model.cfg.with_updates(
-        moe_groups=rank_moe_groups(model.cfg, shards)))
-
-
 def client_rows(batch: dict, num_clients: int, rows: slice) -> dict:
     """A round batch's rows for this rank: a tensor holding all
     `num_clients` rows is cut to `rows`; one that already holds only this
@@ -221,7 +207,9 @@ def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
     and each rank reads its rows. The returned state is this rank's; the
     metrics are global. Requires M divisible by the client-shard count D,
     and a chunk that is a multiple of D (each rank scans whole blocks of
-    c/D of its own clients)."""
+    c/D of its own clients). An MoE model takes no chunk smaller than M
+    on more than one shard: its capacity follows the chunk's clients,
+    which are not the reference's there (see the refusal's message)."""
     group = None
     if mesh is not None:
         if alg.client_axes is None:
@@ -239,7 +227,16 @@ def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
                 f"client_chunk {client_chunk} must be a multiple of the "
                 f"mesh's client-shard count {D} (each device scans whole "
                 f"blocks of {client_chunk // max(D, 1)} clients)")
-        model = mesh_model(model, D)
+        if (model.cfg.num_experts and D > 1 and client_chunk is not None
+                and client_chunk < num_clients):
+            raise ValueError(
+                f"an MoE model with client_chunk {client_chunk} < num_clients "
+                f"{num_clients} on {D} client shards is not supported: expert "
+                "capacity is computed per client chunk, and the reference's "
+                "chunk j is clients [j*c, (j+1)*c) split over the shards, "
+                "while each rank here holds a contiguous block of M/D clients "
+                "and scans its own; run the MoE with the mesh and no chunk, or "
+                "with the chunk and no mesh")
         group = client_group(mesh)
     if client_chunk is not None and num_clients % client_chunk:
         raise ValueError(

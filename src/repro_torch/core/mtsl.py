@@ -40,10 +40,13 @@ then an all-reduce over the client group:
   * the server's gradient: the sum over the rank's clients, then
     `client_sum_` (`_sum_server`);
   * the loss: the per-task terms gathered (`gather_clients`) and summed,
-    plus the aux loss. The MoE aux is a mean over dispatch groups, and a
-    rank dispatches its own tokens as moe_groups/D groups
-    (`core.algorithms.mesh_model`), so each rank's objective takes aux/D
-    and the global aux is the sum of those shares (`_objective`);
+    plus the aux loss. The server runs inside `models.moe.round_tokens`
+    (the towers do not: a tower's tokens are one client's): a rank's tokens are its contiguous block
+    of the round's, dispatched as the unsharded round dispatches them,
+    and each layer's aux is this rank's share of the round's (the
+    shares sum to it; each rank differentiates only its own router
+    probabilities). So each rank's objective takes its share, and the
+    global aux is the sum of the shares (`_objective`);
   * the training accuracy: its numerator and its sample-weighted
     denominator, summed (`_acc`);
   * the round's per-task metric and the eval's per-task accuracy or loss,
@@ -58,6 +61,7 @@ import torch
 from repro_torch.core import client_axis
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.split import client_view, is_client_path, stack_towers
+from repro_torch.models import moe
 from repro_torch.models.registry import Model
 from repro_torch.optim.per_component import ComponentLR, per_component_lr
 from repro_torch.utils.tree import (
@@ -148,17 +152,16 @@ def _towers_fn(model: Model, num_clients: Optional[int] = None) -> Callable:
 
 def _objective(wper, aux):
     """(the objective this process differentiates, the round's loss, its
-    aux loss). Off a mesh both are sum(wper) + aux. Under one, the
-    objective is this rank's share, sum of its wper + aux/D, and the loss
-    is global (see the module docstring)."""
-    g = client_axis.current_group()
-    if g is None:
+    aux loss). Off a mesh both are sum(wper) + aux. Under one, `aux` is
+    this rank's share of the round's aux loss, the objective is sum of its
+    wper + that share, and the loss is global (see the module
+    docstring)."""
+    if client_axis.current_group() is None:
         loss = wper.sum() + aux
         return loss, loss, aux
-    share = aux / g.size
-    aux_all = client_axis.client_sum(share.detach())
+    aux_all = client_axis.client_sum(aux.detach())
     loss = client_axis.gather_clients(wper.detach()).sum() + aux_all
-    return wper.sum() + share, loss, aux_all
+    return wper.sum() + aux, loss, aux_all
 
 
 def _acc(correct, num, den, floor):
@@ -227,7 +230,8 @@ def make_loss_fn(model: Model, num_clients: int) -> Callable:
                 smashed)
         # --- smashed-data upload: fold the client dim into the batch
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
-        logits, aux = model.server_forward(params["server"], flat)
+        with moe.round_tokens(client_axis.current_group()):
+            logits, aux = model.server_forward(params["server"], flat)
         if not is_classifier:
             per_logits = _at_least_f32(logits).reshape(
                 (M, -1) + tuple(logits.shape[1:]))
@@ -320,7 +324,6 @@ def _chunked_grads(model: Model, c: int, params, batch,
     the blocks, then over the client group under a mesh (see the module
     docstring)."""
     M = _rows(batch)
-    g_mesh = client_axis.current_group()
     terms = _chunk_terms_fn(model, c)
     t_leaves = tree_leaves(params["towers"])
     s_req = [x.detach().requires_grad_() for x in tree_leaves(params["server"])]
@@ -335,9 +338,7 @@ def _chunked_grads(model: Model, c: int, params, batch,
                               None if smask is None else smask[sl],
                               None if sdenom is None else sdenom[sl])
         wper = per if part is None else per * part
-        g = torch.autograd.grad(
-            wper.sum() + (aux if g_mesh is None else aux / g_mesh.size),
-            t_req + s_req)
+        g = torch.autograd.grad(wper.sum() + aux, t_req + s_req)
         tgs.append(g[:len(t_req)])
         gs = g[len(t_req):]
         sg = list(gs) if sg is None else [a + b for a, b in zip(sg, gs)]
@@ -507,7 +508,8 @@ def build_eval_step(model: Model, num_clients: int) -> Callable:
         inputs = {k: v for k, v in batch.items() if k != "label"}
         smashed = towers_fwd(params["towers"], inputs)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
-        logits, _ = model.server_forward(params["server"], flat)
+        with moe.round_tokens(client_axis.current_group()):
+            logits, _ = model.server_forward(params["server"], flat)
         if not is_classifier:
             return _lm_loss(_at_least_f32(logits).reshape((M, -1) + tuple(logits.shape[1:])),
                             batch["tokens"])

@@ -8,8 +8,8 @@
       the SERVER-side commit (for mtsl: the per-component update).
 
 The synchronous round is their composition (`compose_phases`). The
-reference's event engine (`train/events.py`), which drives the two phases
-on its own clock, is not ported yet.
+event engine (`train/events.py`, `TrainConfig.async_mode`) drives the
+two phases on its own clock, as the reference's does.
 """
 from __future__ import annotations
 

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.build import load_cuda_library
 from repro_torch.kernels.counts import META, KernelCost, register
-from repro_torch.kernels.flash_attention.ref import mha_grouped, mha_reference
+from repro_torch.kernels.flash_attention.ref import mha_chunked, mha_grouped, mha_reference
 
 _KERNELS = Path(__file__).resolve().parents[1]
 SOURCES = (_KERNELS / "flash_attention" / "csrc" / "flash_attention.cu",)
@@ -187,16 +187,23 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    cross: bool = False) -> torch.Tensor:
+                    cross: bool = False, chunk: int = 0) -> torch.Tensor:
     """q [B, Sq, Hq, D], k / v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
     dtype: softmax(q k^T / sqrt(D)) v with the causal and window masks and
     GQA (kv head h // (Hq / Hkv)). On CUDA a row with no visible key gives
     0, as the TPU kernel does; the plain version averages over the masked
     keys (the training forward never has such a row). `cross` says that k
     and v come from another sequence: the launch counts as cross attention,
-    which takes no causal mask."""
+    which takes no causal mask. `chunk` > 0 (cfg.attn_chunk under
+    cfg.attn_impl = "chunked") makes the plain version of CPU tensors
+    `ref.mha_chunked` over KV chunks of that many keys, differentiated
+    through its own per-chunk recomputation; on the card and on meta
+    tensors it changes nothing (K2 is the online softmax over key
+    tiles)."""
     if cross and causal:
         raise ValueError("flash_attention: cross attention takes no causal mask")
+    if chunk and not (q.is_cuda or q.is_meta):
+        return mha_chunked(q, k, v, causal=causal, window=window, chunk=chunk)
     return _FlashAttention.apply(q, k, v, bool(causal), int(window), bool(cross))
 
 

@@ -3,11 +3,14 @@ non-causal / cross), the port of `repro.kernels.flash_attention.ref`.
 Prefill and chunked extend use it, as the reference does. It is also the
 plain version of the flash-attention kernel (K2, `csrc/flash_attention.cu`),
 the path of CPU tensors in the training forward, and the function that K2's
-backward differentiates (through `mha_grouped`, uncounted).
+backward differentiates (through `mha_grouped`, uncounted). `mha_chunked`,
+the online-softmax form over KV chunks, is K2's plain version under
+cfg.attn_impl = "chunked".
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.counts import register
 
@@ -98,6 +101,71 @@ def mha_grouped(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def mha_chunked(
+    q: torch.Tensor,  # [B, Sq, Hq, D]
+    k: torch.Tensor,  # [B, Sk, Hkv, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of `chunk` keys (the
+    reference's `mha_chunked`, its scan a loop): the [Sq, Sk] score matrix
+    is never whole, only [Sq, chunk] of it at a time, and each chunk's
+    step is recomputed in the backward (`torch.utils.checkpoint`), so
+    training memory stays chunked too. The same function as
+    `mha_reference`, rounded apart. It is the plain version of K2 under
+    cfg.attn_impl = "chunked", which CPU tensors run; a row with no
+    visible key gives 0."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    chunk = min(chunk, Sk)
+    pad = (-Sk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    n_chunks = (Sk + pad) // chunk
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    scale = (1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))).item()
+    qpos = torch.arange(Sq, device=q.device)
+
+    def body(m_prev, l_prev, acc, k_c, v_c, ci):
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_c.float()) * scale
+        mask = (kpos[None, :] < Sk).expand(Sq, chunk)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m_prev, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_prev - m_new)
+        l_new = l_prev * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v_c.dtype), v_c).float()
+        return m_new, l_new, acc
+
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        k_c = k[:, ci * chunk:(ci + 1) * chunk]
+        v_c = v[:, ci * chunk:(ci + 1) * chunk]
+        if torch.is_grad_enabled():
+            m, denom, acc = checkpoint(body, m, denom, acc, k_c, v_c, ci,
+                                       use_reentrant=False)
+        else:
+            m, denom, acc = body(m, denom, acc, k_c, v_c, ci)
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    out = (acc / denom[..., None]).to(q.dtype)  # [B, Hkv, G, Sq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
 
 
 # calls on CUDA tensors (serving prefill and extend make them; the training

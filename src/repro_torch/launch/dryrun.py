@@ -54,7 +54,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import client_axis
-from repro_torch.core.algorithms import HParams, get_algorithm, mesh_model
+from repro_torch.core.algorithms import HParams, get_algorithm
 from repro_torch.core.schedule import full_schedule, local_schedule
 from repro_torch.kernels.counts import META
 from repro_torch.launch import specs
@@ -212,10 +212,9 @@ def run_program(model, kind: str, M: int, b: int, S: int, *, shards: int = 1,
             optimizer = sgd(0.05) if cfg.family in ("mlp", "resnet") else adamw(lr)
         hp = HParams(lr=lr, local_steps=local_steps, optimizer=optimizer,
                      component_lr=component_lr, microbatches=cfg.microbatches)
-        rmodel = mesh_model(model, D)
         with abstract_params():
-            state = _to_meta(alg.init_state(rmodel, torch.Generator(), rank_M, hp))
-        round_fn = alg.round_fn(rmodel, M, hp)
+            state = _to_meta(alg.init_state(model, torch.Generator(), rank_M, hp))
+        round_fn = alg.round_fn(model, M, hp)
         spr = alg.steps_per_round(hp)
         batch = _rank_inputs(cfg, "train", rank_M, b * spr, S)  # b rows a step
         sched = local_schedule(full_schedule(M, spr), slice(0, rank_M))
@@ -295,20 +294,12 @@ def lower_program(arch: str, shape_name: str, *, mesh: Optional[str] = None,
                 "reason": "full-attention arch; no sub-quadratic variant (DESIGN.md §6)"}
     M, b = specs.clients_for(shape, sizes)
     D = client_axis_size(sizes)
-    set_groups = {}
-    if shape.kind == "train" and cfg.num_experts and M % D == 0 and cfg.moe_groups % D:
-        # the port's mesh dispatches a rank's tokens as moe_groups / D
-        # groups (core.algorithms.mesh_model): one group a rank
-        set_groups = {"moe_groups": D}
-        cfg = cfg.with_updates(**set_groups)
     got = run_program(build_model(cfg), shape.kind, M, b, shape.seq_len, shards=D,
                       algorithm=algorithm, device=device)
     ops = got.pop("collective_ops")
     report = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "algorithm": algorithm if shape.kind == "train" else "-",
               "status": "OK", **got}
-    if set_groups:
-        report["set"] = set_groups
     if top_collectives:
         report["top_collectives"] = collectives.top_collectives(ops, top_collectives)
     if verbose:

@@ -23,7 +23,8 @@ Attention execution modes:
              rope), always through the flash-attention wrapper (K2: the
              CUDA kernel on CUDA tensors)
   - prefill: full sequence, causal (+ sliding window), returns a KV cache
-             (a ring of `window` slots under cfg.decode_long_window)
+             (a ring of `window` slots under cfg.decode_long_window);
+             through K2 under cfg.attn_impl = "chunked"
   - decode:  one token per row against the row's cache slot, per-row
              positions, or cross attention of the token to `kv_src`;
              always through the flash-decode wrapper (K4)
@@ -191,18 +192,23 @@ def attn_forward(p, x, cfg: ModelConfig, *, window: int = 0, kv_src=None,
     causal self-attention under cfg.use_flash_kernel (off by default) and
     sends the other calls to mha_reference; the port does not read the
     flag, so that the kernel is the path (all compute one function: the
-    kernel masks keys at j >= Sk). attn_impl="chunked" is not ported."""
-    if cfg.attn_impl != "ref":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not ported: the port's training "
-            "attention is the flash-attention kernel")
+    kernel masks keys at j >= Sk). Under attn_impl="chunked" the kernel is
+    the path on the card all the same, and CPU tensors run self-attention
+    through `mha_chunked` (cross attention through `mha_reference`), as
+    the reference does."""
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     cross = kv_src is not None
     S = x.shape[-2]
     q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device), kv_src)
     out = flash_attention(q, k, v, causal=causal and not cross, window=window,
-                          cross=cross)
+                          cross=cross, chunk=0 if cross else _attn_chunk(cfg))
     return _out_proj(out, p["wo"])
+
+
+def _attn_chunk(cfg: ModelConfig) -> int:
+    """cfg.attn_chunk under attn_impl="chunked", else 0 (the reference
+    takes any other value as "ref")."""
+    return cfg.attn_chunk if cfg.attn_impl == "chunked" else 0
 
 
 def _ring(cfg: ModelConfig, window: int, cap: int) -> bool:
@@ -220,15 +226,24 @@ def attn_prefill(p, x, cfg: ModelConfig, *, window: int = 0, max_len: int = 0):
     p % window, so for S >= window the last `window` keys rolled by
     S % window, for S < window the prompt's keys zero-padded.
 
-    The attention is the plain `mha_reference` on every device, as in the
-    reference (its prefill never reaches its kernel either), though K2
-    computes this function: only the sequential engine prefills, and it is
-    the continuous engine's parity oracle, not its path. Moving it onto K2
-    would make the two engines' attention round apart."""
+    Under attn_impl="ref" the attention is the plain `mha_reference` on
+    every device, as in the reference (its prefill never reaches its
+    kernel either): only the sequential engine prefills, and it is the
+    continuous engine's f32 parity oracle, whose extend runs
+    `mha_reference` too. Under attn_impl="chunked" it is the online
+    softmax without the S x S scores: K2 on the card (causal, the layer's
+    window), `mha_chunked` over cfg.attn_chunk keys on CPU tensors, as the
+    reference's `mha_chunked`. The sequential engine's prefill and the
+    continuous engine's extend then compute the same function but round
+    apart, as they do in the reference."""
     h = rmsnorm(p["norm"], x, cfg.norm_eps)
     S = x.shape[-2]
     q, k, v = _project_qkv(p, h, cfg, torch.arange(S, device=x.device))
-    out = mha_reference(q, k, v, causal=True, window=window)
+    chunk = _attn_chunk(cfg)
+    if chunk:
+        out = flash_attention(q, k, v, causal=True, window=window, chunk=chunk)
+    else:
+        out = mha_reference(q, k, v, causal=True, window=window)
     y = _out_proj(out, p["wo"])
     cap = max_len or S
     if _ring(cfg, window, cap) and S >= window:

@@ -43,6 +43,8 @@ ctx keys: "shared" (every mode), "xattn" (forward, prefill, decode),
 """
 from __future__ import annotations
 
+import contextlib
+
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -50,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.moe import moe_forward, moe_params
+from repro_torch.models.moe import moe_forward, moe_params, round_tokens, round_tokens_group
 from repro_torch.models.ssm import (
     init_mamba_cache,
     mamba_decode,
@@ -304,7 +306,16 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
         return fn
     if cfg.remat not in ("block", "full"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def unit(*args):
+        # the recompute dispatches its MoE layers over the tokens the
+        # forward saw (models.moe.round_tokens), wherever the backward runs
+        group = round_tokens_group()
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              round_tokens(group)))
+
+    return unit
 
 
 def make_stack(cfg: ModelConfig, kinds: Sequence[str]) -> Stack:

@@ -81,7 +81,6 @@ from repro_torch.core.algorithms import (
     client_rows,
     gather_algorithm_state,
     get_algorithm,
-    mesh_model,
     num_rounds,
     place_algorithm_state,
     shard_round_fn,
@@ -345,10 +344,9 @@ def train(
 def _eval_fn(alg, model, num_clients: int, tcfg: TrainConfig, group=None):
     """The algorithm's eval, under the run's client chunk and, on a mesh,
     its client group (this rank's clients; the metrics gathered)."""
+    ev = alg.eval_fn(model, num_clients)
     if group is None and tcfg.client_chunk is None:
-        return alg.eval_fn(model, num_clients)
-    ev = alg.eval_fn(model if group is None else mesh_model(model, group.size),
-                     num_clients)
+        return ev
 
     def scoped(state, batch):
         with client_axis(chunk=tcfg.client_chunk, group=group):

@@ -8,8 +8,8 @@ the JAX reference, in f32 on the CPU.
     backward recomputes through the plain version);
   * `attn_forward` with `causal=False` and with `kv_src` (no mask, no
     rope on the keys; Sk != Sq and Sk == Sq) against the reference's
-    `attn_forward`, forward and gradients, and its refusal of
-    attn_impl="chunked" (not ported);
+    `attn_forward`, forward and gradients (attn_impl="chunked" is
+    tests/test_torch_chunked_attention.py's);
   * the wrapper's refusal of a causal cross call;
   * the `bidir` and `cross` blocks of the stacks (and which serving
     functions each has).
@@ -129,14 +129,6 @@ def test_attn_forward_matches_jax(mode, Sk):
     else:
         _check(jax.jit(lambda p, x, kv: JL.attn_forward(p, x, cfg_j, kv_src=kv)), pj,
                lambda p, x, kv: TL.attn_forward(p, x, cfg, kv_src=kv), pt, [x, kv], g)
-
-
-def test_attn_forward_refuses_chunked_impl():
-    cfg = get_config("llama-3.2-vision-11b", smoke=True).with_updates(attn_impl="chunked")
-    pt = TL.attn_params(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros(1, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TL.attn_forward(pt, x, cfg)
 
 
 @pytest.mark.parametrize("kind", ["bidir", "cross"])

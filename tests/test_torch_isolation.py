@@ -1,6 +1,7 @@
-"""Isolation and hygiene of the PyTorch port (`src/repro_torch/` and the
-root `chip_smoke.py`): it imports neither `jax` nor the JAX package
-`repro`, every module imports with JAX unavailable, its serving and
+"""Isolation and hygiene of the PyTorch port (`src/repro_torch/`, the
+root `chip_smoke.py`, the example twins `examples/torch_*.py` and the
+tools `tools/torch_*.py`): it imports neither `jax`, the JAX package
+`repro` nor the reference's `benchmarks`, every module imports with JAX unavailable, its serving and
 training launchers run end to end on the CPU, its entry points default to
 CUDA, and it lints clean under tools/repro_lint."""
 import ast
@@ -14,7 +15,9 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the example twins and the port's tools, and their shared helper
+TWINS = sorted(REPO.glob("examples/torch_*.py")) + sorted(REPO.glob("tools/torch_*.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + TWINS
 
 
 def _env():
@@ -35,7 +38,7 @@ def _imported_modules(path):
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
@@ -93,7 +96,8 @@ def test_entry_points_default_to_cuda(entry):
 def test_port_lints_clean():
     from tools.repro_lint import lint_paths
 
-    findings, errors = lint_paths([str(PORT), str(REPO / "chip_smoke.py")])
+    findings, errors = lint_paths([str(PORT), str(REPO / "chip_smoke.py"),
+                                   *map(str, TWINS)])
     assert not errors and not findings, [f.to_json() for f in findings] + errors
 
 

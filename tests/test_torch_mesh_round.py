@@ -29,8 +29,8 @@ batch shapes and schedules):
 Tolerances: every state leaf within 1e-5 absolute, every round loss
 within 1e-5 of max(1, |loss|), against both; evals equal. The refusals
 (no client_axes, M not divisible by D, a chunk that is not a multiple of
-D, moe_groups = 1 under a mesh) are made without a world, each with the
-reference's message where the reference makes it.
+D) are made without a world, each with the reference's message. An MoE at
+any moe_groups under a mesh is tests/test_torch_moe_mesh_groups.py's.
 
 One spawn per module (tests/torch_mesh_ranks.py) runs every cell; the
 parent computes the reference's inits and rounds, in threads, while the
@@ -53,7 +53,6 @@ from repro_torch.core.algorithms import (
     Algorithm,
     HParams,
     get_algorithm,
-    mesh_model,
     shard_round_fn,
 )
 from repro_torch.launch.mesh import make_mesh_from_spec
@@ -268,15 +267,3 @@ def test_shard_round_refusals_match_reference(case):
                                                    mesh=stub, **kw))
     got = _refusal(lambda: shard_round_fn(alg, model, *args, HParams(), mesh=stub, **kw))
     assert got == want
-
-
-def test_moe_groups_one_refused_under_mesh():
-    cfg = get_config(MOE["arch"], smoke=True).with_updates(num_clients=4)
-    assert cfg.moe_groups == 1
-    with pytest.raises(ValueError, match="moe_groups=1 is not a multiple"):
-        shard_round_fn(get_algorithm("mtsl"), build_model(cfg), 4, HParams(),
-                       mesh=StubMesh(data=2))
-    # one client shard (data=1, or model only) keeps the model as it is
-    model = build_model(cfg)
-    assert mesh_model(model, 1) is model
-    assert mesh_model(build_model(cfg.with_updates(moe_groups=4)), 2).cfg.moe_groups == 2

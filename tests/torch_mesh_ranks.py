@@ -184,14 +184,13 @@ def _sharded(cell, mesh, world, tally=None):
     from repro_torch.core.algorithms import (
         gather_algorithm_state,
         get_algorithm,
-        mesh_model,
         place_algorithm_state,
         shard_round_fn,
     )
     from repro_torch.core.client_axis import (client_axis, collective_stats,
                                               reset_collectives)
     from repro_torch.train.loop import stage_batch
-    from repro_torch.utils.sharding import client_axis_size, client_group
+    from repro_torch.utils.sharding import client_group
 
     cfg, model = _model(cell["cfg"])
     alg = get_algorithm(cell["alg"])
@@ -210,7 +209,7 @@ def _sharded(cell, mesh, world, tally=None):
     ev = None
     if cfg.family in ("mlp", "resnet"):
         group = client_group(mesh)
-        ev_fn = alg.eval_fn(mesh_model(model, client_axis_size(mesh)), cell["M"])
+        ev_fn = alg.eval_fn(model, cell["M"])
         with client_axis(group=group):
             rows = group.rows(cell["M"])
             ev = {k: v.numpy() for k, v in ev_fn(
