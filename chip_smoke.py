@@ -197,9 +197,11 @@ Phases, each of which must pass (any failure exits non-zero):
           card's buffer is the CPU's function; reported beside it, each
           side's f32 state against its own f64 one and the ReLU inputs of
           round 3's first step that f32 rounds to the other side of 0. Then
-          splitfed and fedavg on the smoke zamba2-7b and mamba2-130m in f32
-          (K2, K3, K1), 3 masked rounds of 2 local steps at lr 0.05, with
-          the same tolerances and K2 / K3 launches as counted. Then two
+          the six on the smoke zamba2-7b and mamba2-130m in f32 (K2, K3,
+          K1), 3 masked rounds of 2 local steps at lr 0.05, with the same
+          tolerances and K2 / K3 launches as counted from the layers
+          (the server once a step for splitfed; per-client full models
+          for the rest, FedEM's K components each). Then two
           seeded 10-round fedavg card runs under
           torch.use_deterministic_algorithms(True): bit-equal parameters.
   lm-baselines  splitfed and fedavg on mamba2-130m's full config: M = 4,
@@ -415,7 +417,7 @@ Phases, each of which must pass (any failure exits non-zero):
           the six baselines at lr 0.01 for 2 rounds of 2 local steps
           (losses within 1e-5 of scale; one K1 launch a local step on
           each rank); mamba2-130m's full config through train() (M = 4,
-          b = 4, S = 256, the 4096-token source, SGD lr 0.05, 3 rounds,
+          b = 4, S = 256, the 4096-token source, SGD lr 0.05, 2 rounds,
           2 clients a rank) in its own dtype, bf16, bit-equal to the
           unsharded run with client_chunk 2, its gap to the unchunked run
           reported (bf16 rounds each rank's partial server gradient), and
@@ -435,7 +437,16 @@ Phases, each of which must pass (any failure exits non-zero):
           1, one dispatch group over both ranks' tokens: the rows kept
           and routed, summed over the ranks (the dispatch tally), equal
           the unsharded run's; losses and the gathered parameters within
-          1e-5; the counts all-gathered a round per rank reported.
+          1e-5; the counts all-gathered a round per rank reported. Then
+          that MoE at M 4 with client chunk 2 (MESH_MOE_CHUNK): each rank
+          holds one client of each chunk (utils/sharding.py `rank_rows`),
+          so the ranks' server dispatch is each chunk's; the tally summed
+          over the ranks equals the unsharded chunk-2 run's, losses and
+          parameters (gathered in client order) within 1e-5, K2 on each
+          rank as counted from its layers (each client's tower, the
+          server once a chunk) and no plain attention; its loss gap to
+          the unchunked run, the bytes gathered and the s a round per
+          rank printed.
   examples  examples/torch_quickstart.py at --steps EXAMPLES_STEPS on the
           card (fedavg one round of 100 local steps, mtsl 4 rounds): K1
           once a local step and once a round (104), no plain update; its
@@ -2676,10 +2687,13 @@ def baselines_parity_phase(torch):
         batches = list(client_batches(src, 4 * ls, steps=rounds, seed=4, seq_len=64))
         scheds = list(itertools.islice(schedule_stream(
             ScheduleConfig(participation_rate=0.5, seed=4), M, ls), rounds))
-        for name in ("splitfed", "fedavg"):
+        for name in BASELINES:
             init = get_algorithm(name).init_state(model, generator("cpu", 4), M, hp)
-            per = _lm_launches_per_round(cfg, M, local_steps=ls,
-                                         full_models=name == "fedavg")
+            # every baseline but splitfed runs per-client full models;
+            # FedEM runs each client's K components
+            K = hp.num_components if name == "fedem" else 1
+            per = _lm_launches_per_round(cfg, M * K, local_steps=ls,
+                                         full_models=name != "splitfed")
             res = _baseline_card_vs_cpu(
                 torch, name, model, M, hp, init, list(zip(batches, scheds)),
                 want_counts={k: rounds * v for k, v in per.items()})
@@ -3824,9 +3838,10 @@ CHUNK_LOSS_TOL = 1e-5  # of max(1, |loss|), and on parameters: the CPU tests'
 MESH_RUN = {"nccl_rounds": 20, "nccl_lr": 0.1, "rounds": 10, "lr": 0.01,
             "local_steps": 2, "baseline_rounds": 2, "resume_rounds": 5,
             "world": 2, "dir": "build/mesh"}
-# 3 rounds (5 before the dryrun phase came, for the script's time limit)
+# 2 rounds (5 before the dryrun phase came, 3 before the chunked MoE cell
+# came, for the script's time limit)
 MESH_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 0.05,
-           "rounds": 3, "data_vocab": 4096}
+           "rounds": 2, "data_vocab": 4096}
 # deepseek-moe-16b at its widths, 3 of 28 layers (the tower's dense lead
 # and MoE layer, the server's MoE layer, which dispatches across the
 # ranks) and a vocabulary of 4,096 (its embeddings at 102,400 made the
@@ -3836,6 +3851,10 @@ MESH_LM = {"arch": "mamba2-130m", "M": 4, "b": 4, "S": 256, "lr": 0.05,
 MESH_MOE = {"arch": "deepseek-moe-16b", "M": 2, "b": 1, "S": 512, "lr": 0.05,
             "rounds": 2, "data_vocab": 4096, "dtype": "float32",
             "updates": {"num_layers": 3, "split_layers": 2, "vocab_size": 4096}}
+# that MoE at M 4 over client chunks of 2 on data=2: each rank holds one
+# client of each chunk (utils/sharding.py `rank_rows`), and the ranks'
+# server dispatch is each chunk's, the unsharded chunked run's
+MESH_MOE_CHUNK = {**MESH_MOE, "M": 4, "chunk": 2}
 # examples: examples/torch_quickstart.py on the card at 1 % of the
 # reference example's steps (fedavg: one round of 100 local steps; mtsl:
 # 4 rounds)
@@ -4365,7 +4384,8 @@ def _mesh_job(torch, job: dict, mesh_spec=None, chunk=None):
     if job["kind"] == "lm":
         state, hist = _mesh_lm(torch, mesh_spec, job.get("dtype"), chunk)
     elif job["kind"] == "moe":
-        state, hist = _mesh_lm(torch, mesh_spec, MESH_MOE["dtype"], c=MESH_MOE)
+        state, hist = _mesh_lm(torch, mesh_spec, MESH_MOE["dtype"], job.get("chunk"),
+                               c=job.get("c", MESH_MOE))
     else:
         argv = list(job["argv"])
         if mesh_spec:
@@ -4390,7 +4410,10 @@ def _mesh_job(torch, job: dict, mesh_spec=None, chunk=None):
 
 def _mesh_jobs(folder) -> list:
     """The data=2 runs: `twin` names the client chunk of the unsharded run
-    that splits the clients as the mesh does (bit-equal to it)."""
+    that splits the clients as the mesh does (bit-equal to it); `gathered`
+    the file the whole gathered state goes to (None: checked on the first
+    rank, see `_mesh_rank`); `unchunked` asks for the run without its
+    chunk too, for its loss gap."""
     c, W = MESH_RUN, MESH_RUN["world"]
     jobs = [{"name": "mtsl", "kind": "launch", "argv": _mesh_argv(c["rounds"], c["lr"]),
              "steps": c["rounds"], "twin": 10 // W,
@@ -4404,15 +4427,20 @@ def _mesh_jobs(folder) -> list:
                    {"name": "lm_f32", "kind": "lm", "dtype": "float32",
                     "steps": MESH_LM["rounds"]},
                    {"name": "moe", "kind": "moe", "steps": MESH_MOE["rounds"],
-                    "gathered": str(folder / "moe_gathered.pt")}]
+                    "gathered": None},
+                   {"name": "moe_chunk", "kind": "moe", "c": MESH_MOE_CHUNK,
+                    "chunk": MESH_MOE_CHUNK["chunk"], "steps": MESH_MOE_CHUNK["rounds"],
+                    "gathered": None, "unchunked": True}]
 
 
 def _mesh_rank(rank: int, world: int, rdv: str, jobs: list, folder: str):
     """A spawned rank of the mesh phase: joins the world as the launcher
     does (`init_distributed`, gloo when ranks share the card), runs every
     job on data=world under deterministic algorithms, writes its results
-    to folder/rank<r>.json (and, for a job that asks, the first rank the
-    whole state gathered in memory to a file)."""
+    to folder/rank<r>.json. For a job that asks, the whole state gathered
+    in memory: the first rank writes it to a file, or, for the MoE runs
+    (whose states are many GB), runs the job again without the mesh (the
+    parent's run, bit for bit) and reports the parameter gap."""
     import torch
     import torch.distributed as dist
 
@@ -4431,12 +4459,22 @@ def _mesh_rank(rank: int, world: int, rdv: str, jobs: list, folder: str):
             for job in jobs:
                 out, state = _mesh_job(torch, job, spec)
                 if "gathered" in job:
+                    t0 = time.perf_counter()
                     whole = gather_algorithm_state(get_algorithm("mtsl"), state,
-                                                   make_mesh_from_spec(spec, "cuda"))
-                    if rank == 0:
+                                                   make_mesh_from_spec(spec, "cuda"),
+                                                   job.get("chunk"))
+                    del state
+                    torch.cuda.empty_cache()
+                    if rank == 0 and job["kind"] == "moe":
+                        _, plain = _mesh_job(torch, job)
+                        out["param_gap"] = _params_gap(whole, plain)
+                        del plain
+                    elif rank == 0:
                         torch.save(whole, job["gathered"])
+                    del whole
+                    out["gather_check_s"] = time.perf_counter() - t0
                 res["jobs"][job["name"]] = out
-                del state
+                state = None
                 torch.cuda.empty_cache()
         res["ops_without_deterministic_algorithm"] = nondet
     except Exception:  # noqa: BLE001 — reported to the phase
@@ -4453,6 +4491,16 @@ def _params_gap(a, b) -> float:
     la, lb = (dict(tree_leaves_with_path(s.params)) for s in (a, b))
     return max(float((la[k].detach().float() - lb[k].detach().float()).abs().max())
                for k in la)
+
+
+def _moe_k2_per_rank(cfg, clients: int, chunks: int) -> int:
+    """K2 launches a round of the cut MoE's mtsl round on `clients`
+    clients run as `chunks` blocks: each client's tower once, the
+    server once a block (`launch.dryrun.launches_per_round` from the
+    block kinds, under the config's remat)."""
+    one, two = (_lm_launches_per_round(cfg, m)["k2"] for m in (1, 2))
+    tower = two - one
+    return clients * tower + chunks * (one - tower)
 
 
 def _loss_gap(got, want) -> tuple:
@@ -4512,15 +4560,17 @@ def mesh_phase(torch, dev):
         # unsharded runs over the mesh's client blocks (`twin`)
         t1 = time.perf_counter()
         jobs = _mesh_jobs(folder)
-        plain, twins, states = {}, {}, {}
+        plain, twins, states, unchunked = {}, {}, {}, {}
         with _deterministic(torch):
             for job in jobs:
                 plain[job["name"]], st = _mesh_job(torch, job)
                 if job["name"] == "mtsl":
                     states["plain"] = st
-                elif job["name"] == "moe":
-                    states["moe"] = st
                 del st
+                if job.get("unchunked"):  # the same run over all clients at once
+                    unchunked[job["name"]], st = _mesh_job(
+                        torch, {k: v for k, v in job.items() if k != "chunk"})
+                    del st
                 if "twin" in job:
                     twins[job["name"]], st = _mesh_job(torch, job, chunk=job["twin"])
                     if job["name"] == "mtsl":
@@ -4556,7 +4606,9 @@ def mesh_phase(torch, dev):
                    "losses_no_mesh": want["losses"],
                    "s_per_round": [g["s_per_round"] for g in got],
                    "s_per_round_no_mesh": want["s_per_round"],
-                   "collectives": [g["collectives"] for g in got]}
+                   "collectives": [g["collectives"] for g in got],
+                   "wall_s": [g["wall_s"] for g in got], "wall_s_no_mesh": want["wall_s"],
+                   "gather_check_s": [g.get("gather_check_s") for g in got]}
             if "twin" in job:
                 # the same client blocks in one process: bit for bit
                 twin = twins[name]["losses"]
@@ -4585,23 +4637,36 @@ def mesh_phase(torch, dev):
                 run.update(k3_launches_per_rank=k3,
                            k3_launches_no_mesh=want["counts"]["k3"])
             if job["kind"] == "moe":
-                # one dispatch group over both ranks' tokens: the ranks keep
-                # and route, between them, the rows the unsharded run does,
-                # and its parameters hold to the same tolerance
+                # one dispatch group over both ranks' tokens (under a chunk,
+                # over the chunk's): the ranks keep and route, between
+                # them, the rows the unsharded run does, and its parameters
+                # hold to the same tolerance
                 rows = [sum(g["moe_rows"][i] for g in got) for i in (0, 1)]
-                whole = torch.load(job["gathered"], map_location=dev, weights_only=False)
-                pgap = _params_gap(whole, states.pop("moe"))
-                del whole
+                pgap = got[0]["param_gap"]
                 if rows != want["moe_rows"] or pgap > CHUNK_LOSS_TOL:
-                    raise AssertionError(f"mesh data=2 moe: rows kept, routed {rows} "
+                    raise AssertionError(f"mesh data=2 {name}: rows kept, routed {rows} "
                                          f"(per rank {[g['moe_rows'] for g in got]}) vs "
                                          f"{want['moe_rows']} without the mesh, or "
                                          f"parameter gap {pgap}")
+                mc = job.get("c", MESH_MOE)
+                mcfg = get_config(mc["arch"]).with_updates(**mc["updates"])
+                chunks = mc["M"] // job.get("chunk", mc["M"])
+                k2 = [g["counts"]["k2"] for g in got]
+                k2_want = mc["rounds"] * _moe_k2_per_rank(mcfg, mc["M"] // W, chunks)
+                if k2 != [k2_want] * W or any(g["counts"]["k2_plain"] for g in got):
+                    raise AssertionError(f"mesh data=2 {name}: K2 {k2} per rank, want "
+                                         f"{k2_want} each and no plain attention")
                 run.update(moe_rows=rows, moe_rows_per_rank=[g["moe_rows"] for g in got],
-                           param_gap=pgap,
+                           param_gap=pgap, M=mc["M"], chunk=job.get("chunk"),
+                           k2_launches_per_rank=k2,
                            all_gather_bytes_per_round=[
                                g["collectives"]["all_gather"]["bytes"] / job["steps"]
                                for g in got])
+                if name in unchunked:
+                    ugap, uscale = _loss_gap(got[0]["losses"], unchunked[name]["losses"])
+                    run.update(losses_unchunked=unchunked[name]["losses"],
+                               loss_gap_unchunked=ugap,
+                               s_per_round_unchunked=unchunked[name]["s_per_round"])
             for r, g in enumerate(got):
                 _check_k1(g["counts"], job["steps"], f"mesh data=2 {name} rank {r}")
             run["k1_launches_per_rank"] = [g["counts"]["k1"] for g in got]
@@ -4668,20 +4733,32 @@ def mesh_phase(torch, dev):
               f"{col['all_gather']['bytes']} B; host "
               f"{(col['all_reduce']['host_s'] + col['all_gather']['host_s']) / c['rounds']:.4f} "
               "s a round in collectives", flush=True)
-    moe = out["data2"]["runs"]["moe"]
-    print(f"  mesh moe (moe_groups 1): rows kept / routed {moe['moe_rows']} (per rank "
-          f"{moe['moe_rows_per_rank']}), the same without the mesh; loss gap "
-          f"{moe['loss_gap']:.3g}, parameter gap {moe['param_gap']:.3g}; "
-          f"{moe['s_per_round']} s a round per rank ({moe['s_per_round_no_mesh']:.4f} "
-          f"without); all-gathered {moe['all_gather_bytes_per_round']} B a round "
-          "per rank", flush=True)
+    for name in ("moe", "moe_chunk"):
+        moe = out["data2"]["runs"][name]
+        print(f"  mesh {name} (M {moe['M']}, client chunk {moe['chunk']}, moe_groups 1): "
+              f"rows kept / routed {moe['moe_rows']} (per rank "
+              f"{moe['moe_rows_per_rank']}), the same without the mesh; loss gap "
+              f"{moe['loss_gap']:.3g}, parameter gap {moe['param_gap']:.3g}; K2 "
+              f"{moe['k2_launches_per_rank']} per rank; "
+              f"{moe['s_per_round']} s a round per rank ({moe['s_per_round_no_mesh']:.4f} "
+              f"without); all-gathered {moe['all_gather_bytes_per_round']} B a round "
+              "per rank", flush=True)
+        if "loss_gap_unchunked" in moe:
+            print(f"  mesh {name}: losses {moe['losses']} against the unchunked run's "
+                  f"{moe['losses_unchunked']} (gap {moe['loss_gap_unchunked']:.6g}; "
+                  f"{moe['s_per_round_unchunked']:.4f} s a round without the mesh "
+                  "or a chunk)", flush=True)
     for name in ("lm", "lm_f32"):
         lm = out["data2"]["runs"][name]
         print(f"  mesh {name}: loss gap to the unsharded run {lm['loss_gap']:.4g} "
               f"(scale {lm['loss_scale']:.4g}, {lm['loss_gap'] / lm['loss_scale']:.3g} of "
               f"it); K3 {lm['k3_launches_per_rank']} per rank "
               f"({lm['k3_launches_no_mesh']} without the mesh)", flush=True)
-    print(f"  mesh steps: {json.dumps(out['step_s'])}", flush=True)
+    print(f"  mesh steps: {json.dumps(out['step_s'])}; each run's wall s, rank 0 and "
+          "without the mesh (+ rank 0's gather and its check): " + json.dumps(
+              {k: [round(r["wall_s"][0], 1), round(r["wall_s_no_mesh"], 1)]
+               + ([round(r["gather_check_s"][0], 1)] if r["gather_check_s"][0] else [])
+               for k, r in out["data2"]["runs"].items()}), flush=True)
     return out
 
 
@@ -5146,6 +5223,9 @@ def main() -> int:
                               for name, run in mesh["data2"]["runs"].items()}}
     k3["mesh_launches"] = {f"data2_{name}_per_rank": mesh["data2"]["runs"][name][
         "k3_launches_per_rank"] for name in ("lm", "lm_f32")}
+    # K2 on each data=2 rank of the MoE runs, unchunked and over chunks of 2
+    k2["mesh_launches"] = {f"data2_{name}_per_rank": mesh["data2"]["runs"][name][
+        "k2_launches_per_rank"] for name in ("moe", "moe_chunk")}
     k4["serve_launches"] = {key: report[key]["counts"]["k4"]
                             for key in ("ssm-serve", "hybrid-serve")}
     zoo_serve = {"moe-serve": report["moe-serve"]["counts"],

@@ -38,7 +38,8 @@ train/events.py, drives them). `shard_round_fn(..., client_chunk=c,
 mesh=...)` treats the client axis as an execution resource, as the
 reference's: with a chunk every per-client map in the round goes over
 M/c blocks; with a mesh (launch/mesh.py, one process per mesh position)
-this process runs the round on its block of M/D clients under
+this process runs the round on its M/D clients (a contiguous block, or
+under a chunk its c/D of each chunk: `utils.sharding.rank_rows`) under
 `client_axis(group=...)`, whose collectives make the cross-client
 reductions global (core/mtsl.py, core/federation.py, core/schedule.py
 name each one). `place_algorithm_state` keeps a state's client rows for
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import comm_cost, federation, lr_policy, topology
-from repro_torch.core.client_axis import client_axis, current_group, gather_clients
+from repro_torch.core.client_axis import client_axis, gather_clients, local_rows
 from repro_torch.core.mtsl import (
     TrainState,
     build_eval_step,
@@ -75,6 +76,7 @@ from repro_torch.utils.sharding import (
     client_group,
     mesh_group,
     mesh_ranks,
+    row_count,
 )
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_map_with_path
 
@@ -173,11 +175,12 @@ def phase_program(alg: "Algorithm", model, num_clients: int,
     return alg.phases(model, num_clients, hp)
 
 
-def client_rows(batch: dict, num_clients: int, rows: slice) -> dict:
+def client_rows(batch: dict, num_clients: int, rows) -> dict:
     """A round batch's rows for this rank: a tensor holding all
-    `num_clients` rows is cut to `rows`; one that already holds only this
-    rank's rows (staged per rank) passes."""
-    n = rows.stop - rows.start
+    `num_clients` rows is cut to `rows` (a `utils.sharding.rank_rows`
+    result); one that already holds only this rank's rows (staged per
+    rank) passes."""
+    n = row_count(rows)
     out = {}
     for k, x in batch.items():
         if x.shape[0] == n:
@@ -206,10 +209,11 @@ def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
     is the round's whole numpy schedule (every rank draws the same one)
     and each rank reads its rows. The returned state is this rank's; the
     metrics are global. Requires M divisible by the client-shard count D,
-    and a chunk that is a multiple of D (each rank scans whole blocks of
-    c/D of its own clients). An MoE model takes no chunk smaller than M
-    on more than one shard: its capacity follows the chunk's clients,
-    which are not the reference's there (see the refusal's message)."""
+    and a chunk that is a multiple of D. A rank holds c/D clients of each
+    chunk (`utils.sharding.rank_rows`): it scans them in blocks of c/D,
+    and the ranks' blocks together are the reference's chunk, so an MoE's
+    capacity follows the reference's clients. Place and gather the state
+    with the same `client_chunk`."""
     group = None
     if mesh is not None:
         if alg.client_axes is None:
@@ -227,16 +231,6 @@ def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
                 f"client_chunk {client_chunk} must be a multiple of the "
                 f"mesh's client-shard count {D} (each device scans whole "
                 f"blocks of {client_chunk // max(D, 1)} clients)")
-        if (model.cfg.num_experts and D > 1 and client_chunk is not None
-                and client_chunk < num_clients):
-            raise ValueError(
-                f"an MoE model with client_chunk {client_chunk} < num_clients "
-                f"{num_clients} on {D} client shards is not supported: expert "
-                "capacity is computed per client chunk, and the reference's "
-                "chunk j is clients [j*c, (j+1)*c) split over the shards, "
-                "while each rank here holds a contiguous block of M/D clients "
-                "and scans its own; run the MoE with the mesh and no chunk, or "
-                "with the chunk and no mesh")
         group = client_group(mesh)
     if client_chunk is not None and num_clients % client_chunk:
         raise ValueError(
@@ -251,7 +245,7 @@ def shard_round_fn(alg: "Algorithm", model, num_clients: int, hp: HParams,
                 return fn(state, batch, schedule)
 
         return chunked
-    rows = group.rows(num_clients)
+    rows = group.rows(num_clients, client_chunk)
     spr = alg.steps_per_round(hp)
 
     def sharded(state, batch, schedule=None):
@@ -286,10 +280,12 @@ def _with_grad(state):
     return state
 
 
-def place_algorithm_state(alg: "Algorithm", state: PyTree, mesh, device=None) -> PyTree:
+def place_algorithm_state(alg: "Algorithm", state: PyTree, mesh, device=None,
+                          client_chunk: Optional[int] = None) -> PyTree:
     """This rank's part of a whole state on `mesh`, per the algorithm's
-    `client_axes` declaration: each marked leaf keeps this rank's block of
-    its client rows; every other leaf is replicated, broadcast from the
+    `client_axes` declaration: each marked leaf keeps this rank's client
+    rows under `client_chunk` (`utils.sharding.rank_rows`; the round's
+    chunk); every other leaf is replicated, broadcast from the
     mesh's first rank (one broadcast per dtype and device), so all ranks
     start from its values. `state` holds tensors or numpy arrays (which
     become tensors on `device`, default the CPU); the input is not
@@ -311,7 +307,7 @@ def place_algorithm_state(alg: "Algorithm", state: PyTree, mesh, device=None) ->
             return x
         t = torch.as_tensor(x).detach()
         if marked:
-            t = t[group.rows(t.shape[0])]
+            t = t[group.rows(t.shape[0], client_chunk)]
         y = t.to(device if isinstance(x, np.ndarray) else t.device, copy=True)
         if not marked:
             shared.append(y)
@@ -332,12 +328,13 @@ def place_algorithm_state(alg: "Algorithm", state: PyTree, mesh, device=None) ->
     return _with_grad(out)
 
 
-def gather_algorithm_state(alg: "Algorithm", state: PyTree, mesh) -> PyTree:
+def gather_algorithm_state(alg: "Algorithm", state: PyTree, mesh,
+                           client_chunk: Optional[int] = None) -> PyTree:
     """The whole state from each rank's part (the inverse of
-    `place_algorithm_state`): every marked leaf's blocks gathered over the
-    client group, in client order; the replicated leaves as they are. Every
-    rank of the mesh calls it and gets the whole state. No-op when mesh is
-    None."""
+    `place_algorithm_state` with the same `client_chunk`): every marked
+    leaf's rows gathered over the client group, in client order; the
+    replicated leaves as they are. Every rank of the mesh calls it and gets
+    the whole state. No-op when mesh is None."""
     if mesh is None:
         return state
     group = client_group(mesh)
@@ -345,7 +342,7 @@ def gather_algorithm_state(alg: "Algorithm", state: PyTree, mesh) -> PyTree:
     def gather(x, marked):
         if not (marked and torch.is_tensor(x)):
             return x
-        with client_axis(group=group):
+        with client_axis(chunk=client_chunk, group=group):
             return gather_clients(x)
 
     return _with_grad(_zip_map(gather, state, alg.client_axes(state)))
@@ -494,10 +491,10 @@ def _mtsl_component_lr(hp: HParams, num_clients: int) -> ComponentLR:
 
 def _rank_clr(clr: ComponentLR, num_clients: int) -> ComponentLR:
     """The per-client multipliers of this rank's clients under a mesh."""
-    g = current_group()
-    if g is None:
+    rows = local_rows(num_clients)
+    if rows is None:
         return clr
-    return ComponentLR(clr.server, clr.clients[g.rows(num_clients)])
+    return ComponentLR(clr.server, clr.clients[rows])
 
 
 def _mtsl_init(model, gen, num_clients, hp: HParams) -> TrainState:

@@ -25,15 +25,19 @@ this is the dense gradient up to summation order):
     `_vmap_with_smask`), and its evals through `client_map`.
 
 The mesh half: under `client_axis(group=g)` (g a
-`utils.sharding.ClientGroup`) this process holds only its block of M/D
-clients of every client-axis tensor, and the round's cross-client
-reductions are a local reduction followed by an all-reduce over g's
-process group: `client_sum` / `client_sum_` (sums, coalesced per dtype),
-`client_max` and `gather_clients` (a [M/D, ...] tensor to the [M, ...]
-one in client order). Without a group each is the identity, so the
-single-device round computes what it did before. With a chunk, each rank
-scans its own clients in blocks of c/D (`current_chunk` is that per-rank
-block size), as the reference's devices each scan c/D of a chunk's c.
+`utils.sharding.ClientGroup`) this process holds only its M/D clients of
+every client-axis tensor, and the round's cross-client reductions are a
+local reduction followed by an all-reduce over g's process group:
+`client_sum` / `client_sum_` (sums, coalesced per dtype), `client_max`
+and `gather_clients` (a [M/D, ...] tensor to the [M, ...] one in client
+order). Without a group each is the identity, so the single-device round
+computes what it did before. Which clients a rank holds is one rule
+(`utils.sharding.rank_rows`): without a chunk its contiguous block; with
+chunk c its c/D clients of each chunk, so that its local blocks of c/D
+(`current_chunk` is that per-rank block size) are its parts of the
+chunks, and the ranks' parts of chunk j, in rank order, are the
+reference's chunk j, as the reference's devices each hold c/D of a
+chunk's c.
 
 `client_blocks(M)` gives the block slices; `client_map` is the forward
 map (eval, no gradient). The policy is read when a round RUNS (there is
@@ -77,6 +81,13 @@ def current_chunk() -> Optional[int]:
 def current_group():
     """The ambient ClientGroup, or None off a mesh."""
     return _STACK[-1].group
+
+
+def local_rows(num_clients: int):
+    """The clients this rank holds under the ambient policy
+    (`utils.sharding.rank_rows`), or None off a mesh."""
+    ctx = _STACK[-1]
+    return None if ctx.group is None else ctx.group.rows(num_clients, ctx.chunk)
 
 
 @contextmanager
@@ -177,10 +188,28 @@ def client_max(t: torch.Tensor) -> torch.Tensor:
 
 
 def gather_clients(t: torch.Tensor) -> torch.Tensor:
-    """This rank's [M/D, ...] block -> the whole [M, ...] tensor, blocks in
-    client order, on every rank of the ambient group. gloo carries only
-    all_reduce and broadcast for CUDA tensors, so under gloo a CUDA block
-    is gathered through the host."""
+    """This rank's [M/D, ...] client rows -> the whole [M, ...] tensor in
+    client order, on every rank of the ambient group: the ranks' rows
+    gathered (`gather_ranks`), then, under a chunk, each chunk's parts
+    put together (rank r's part of chunk j is its j-th block of c/D)."""
+    g = current_group()
+    if g is None:
+        return t
+    out = gather_ranks(t)
+    per = current_chunk()
+    n = t.shape[0]
+    if per is None or per >= n:
+        return out
+    rest = tuple(t.shape[1:])
+    return out.reshape((g.size, n // per, per) + rest).transpose(0, 1).reshape(
+        (g.size * n,) + rest)
+
+
+def gather_ranks(t: torch.Tensor) -> torch.Tensor:
+    """[n, ...] on each rank of the ambient group -> [D·n, ...], the ranks'
+    tensors in rank order, on every rank. gloo carries only all_reduce and
+    broadcast for CUDA tensors, so under gloo a CUDA tensor is gathered
+    through the host."""
     g = current_group()
     if g is None:
         return t

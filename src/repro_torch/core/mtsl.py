@@ -41,12 +41,15 @@ then an all-reduce over the client group:
     `client_sum_` (`_sum_server`);
   * the loss: the per-task terms gathered (`gather_clients`) and summed,
     plus the aux loss. The server runs inside `models.moe.round_tokens`
-    (the towers do not: a tower's tokens are one client's): a rank's tokens are its contiguous block
-    of the round's, dispatched as the unsharded round dispatches them,
-    and each layer's aux is this rank's share of the round's (the
-    shares sum to it; each rank differentiates only its own router
-    probabilities). So each rank's objective takes its share, and the
-    global aux is the sum of the shares (`_objective`);
+    (the towers do not: a tower's tokens are one client's): a rank's
+    tokens are its contiguous block of the round's, or under a client
+    chunk of the chunk's (a rank holds c/D clients of each chunk,
+    `utils.sharding.rank_rows`), dispatched as the unsharded round or
+    chunk dispatches them, and each layer's aux is this rank's share of
+    the round's or the chunk's (the shares sum to it; each rank
+    differentiates only its own router probabilities). So each rank's
+    objective takes its share, and the global aux is the sum of the
+    shares (`_objective`);
   * the training accuracy: its numerator and its sample-weighted
     denominator, summed (`_acc`);
   * the round's per-task metric and the eval's per-task accuracy or loss,
@@ -288,7 +291,8 @@ def _chunk_terms_fn(model: Model, c: int) -> Callable:
                     s, s.detach()) if s.is_floating_point() else s,
                 smashed)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
-        logits, aux = model.server_forward(params["server"], flat)
+        with moe.round_tokens(client_axis.current_group()):
+            logits, aux = model.server_forward(params["server"], flat)
         logits32 = _at_least_f32(logits)
         if not is_classifier:
             per_logits = logits32.reshape((c, -1) + tuple(logits.shape[1:]))
@@ -536,7 +540,8 @@ def _chunk_eval_fn(model: Model, c: int) -> Callable:
         inputs = {k: v for k, v in batch.items() if k != "label"}
         smashed = towers_fwd(towers, inputs)
         flat = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), smashed)
-        logits, _ = model.server_forward(server, flat)
+        with moe.round_tokens(client_axis.current_group()):
+            logits, _ = model.server_forward(server, flat)
         if not is_classifier:
             return _lm_loss(_at_least_f32(logits).reshape((c, -1) + tuple(logits.shape[1:])),
                             batch["tokens"])

@@ -366,9 +366,10 @@ def participation_tree_mean(tree, mask: torch.Tensor,
 
 
 def local_schedule(schedule: Optional[ClientSchedule],
-                   rows: slice) -> Optional[ClientSchedule]:
-    """The rows `rows` of every per-client field of a schedule (a rank's
-    client block under a mesh)."""
+                   rows) -> Optional[ClientSchedule]:
+    """The rows `rows` (a slice or a list of client ids) of every
+    per-client field of a schedule (a rank's clients under a mesh,
+    `utils.sharding.rank_rows`)."""
     if schedule is None:
         return None
     return ClientSchedule(*(None if f is None else f[rows] for f in schedule))

@@ -113,18 +113,14 @@ class ShardableDataset:
             raise ValueError(f"shard index {index} not in [0, {count})")
         return self._with_clients(self.clients[index::count])
 
-    def block(self, index: int, count: int) -> "ShardableDataset":
-        """A view over the index-th of `count` contiguous blocks of clients:
-        the rows a rank holds under a mesh, whose client blocks are
-        contiguous (utils/sharding.py). Rows are the same as in any other
+    def subset(self, rows) -> "ShardableDataset":
+        """A view over this view's clients at positions `rows` (a slice or
+        a list of positions): the clients a rank holds under a mesh,
+        `utils.sharding.rank_rows`. Rows are the same as in any other
         view, since draws key on global client ids."""
-        if not 0 <= index < count:
-            raise ValueError(f"block index {index} not in [0, {count})")
-        n = len(self.clients)
-        if n % count:
-            raise ValueError(f"{n} clients do not split into {count} blocks")
-        per = n // count
-        return self._with_clients(self.clients[index * per:(index + 1) * per])
+        if isinstance(rows, slice):
+            return self._with_clients(self.clients[rows])
+        return self._with_clients(tuple(self.clients[i] for i in rows))
 
     def _with_clients(self, clients: Sequence[int]) -> "ShardableDataset":
         raise NotImplementedError

@@ -64,14 +64,20 @@ and refusals:
     clients, each block's backward before the next; C must divide M and
     `--async` refuses it.
   * `--mesh data=N[,model=K[,pod=P]]` (launch/mesh.py, utils/sharding.py):
-    the client axis over N·K·P ranks, one process per mesh position: each
-    rank holds its block of M/(N·P) clients (towers, per-client optimizer
-    state, schedule rows, its rows of each round batch; a cached dataset
-    reads only its block), the rest is replicated, and the federation
+    the client axis over N·K·P = D ranks, one process per mesh position:
+    each rank holds M/(N·P) clients (towers, per-client optimizer state,
+    schedule rows, its rows of each round and eval batch; a cached dataset
+    reads only its clients), the rest is replicated, and the federation
     means and server-gradient sums are all-reduces over the client group.
-    Ranks that differ only in "model" compute the same round. M must
-    divide by N·P, a `--client-chunk` must be a multiple of it, and
-    `--async` refuses a mesh. A plain launch starts the ranks itself
+    Which clients: without `--client-chunk` the rank's contiguous block;
+    with `--client-chunk C` its C/D clients of each chunk {j·C + r·C/D +
+    i} (utils/sharding.py `rank_rows`), so the ranks' parts of chunk j are
+    clients [j·C, (j+1)·C), the reference's chunk, and an MoE's expert
+    capacity is the chunk's, as the reference's (`--mesh data=2
+    --client-chunk 2` on deepseek-moe-16b). Ranks that differ only in
+    "model" compute the same round. M must divide by N·P, a
+    `--client-chunk` must be a multiple of it, and `--async` refuses a
+    mesh. A plain launch starts the ranks itself
     (spawned processes, a file rendezvous in a temporary directory); under
     `torchrun --nproc-per-node N·K·P` it uses the ranks it was given. Rank
     r runs on `cuda:(r % device_count)`, or on the CPU under
@@ -488,14 +494,14 @@ def main(argv=None):
     if args.data == "cached":
         # cached shard READS replace per-round synthesis on the prefetch
         # thread (data/shards.py); the cache is built once on first use (by
-        # the first rank under a mesh; each rank then reads its block)
+        # the first rank under a mesh; each rank then reads its clients)
         if first:
             ds = _cached_dataset(args, src, M, is_classifier)
         if group is not None:
             dist.barrier()
             if not first:
                 ds = _cached_dataset(args, src, M, is_classifier)
-            ds = ds.block(group.index, group.size)
+            ds = ds.subset(group.rows(M, args.client_chunk))
         batches = client_batches(ds, per_round_batch, steps=rounds, seq_len=seq,
                                  seed=args.seed)
     else:

@@ -26,7 +26,9 @@ reads.
 
 The client axis across ranks: inside `round_tokens(group)` on a client
 group of D ranks (`core.client_axis`), each rank holds a contiguous 1/D of the
-round's tokens and dispatches them as the unsharded call would, for any
+call's tokens (the round's, or under a client chunk the chunk's: a rank's
+block of the chunk, `utils.sharding.rank_rows`) and dispatches them as the
+unsharded call would, for any
 cfg.moe_groups (one group over every rank's tokens, a group a rank, or
 groups that straddle ranks): one all-gather of each group's routed counts
 per expert a layer gives every rank the rows lower ranks route ahead of
@@ -136,7 +138,7 @@ def _dispatch(p, ht, cfg: ModelConfig, C: int, Tg: int, G: int, lo: int = 0,
     else:
         counts = seg_count.new_zeros(G, E)
         counts[g0:g0 + nG] = seg_count.reshape(nG, E)
-        every = client_axis.gather_clients(counts[None])[:, g0:g0 + nG].reshape(-1, nG * E)
+        every = client_axis.gather_ranks(counts[None])[:, g0:g0 + nG].reshape(-1, nG * E)
         routed = every.sum(0)
         below = every[:group.index].sum(0)
         pos_all = pos + below[k_sorted]
@@ -199,7 +201,9 @@ def round_tokens(group):
     tokens the unsharded call would get, and the call dispatches them as
     that call would (see `_dispatch`). None, or a group of one rank: the
     tokens are the call's own. mtsl's round and eval enter it around the
-    server, which runs on every client's tokens at once; the towers
+    server, which runs on every client's tokens at once (on every client
+    of the chunk under a client chunk, whose capacity is the chunk's, as
+    the reference's); the towers
     (one client's tokens) and the baselines' per-client models do not. A
     rematerialised unit re-enters, in the backward, the group its forward
     saw (`models.stacks`)."""

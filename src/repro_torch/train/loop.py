@@ -53,17 +53,20 @@ its "sim_time" as `start_sim_time` and, in async mode, its "events" as
 The client axis over devices (`TrainConfig.mesh`, a DeviceMesh from
 `launch.mesh.make_mesh_from_spec`; one process per mesh position): each
 rank builds the state from the seed (or takes `init_state`) and keeps its
-block of M/D clients (`place_algorithm_state`; the replicated leaves are
+M/D clients (`place_algorithm_state`; which clients is one rule,
+`utils.sharding.rank_rows`: a contiguous block, or under
+`client_chunk` c the rank's c/D of each chunk; the replicated leaves are
 broadcast from the mesh's first rank), runs every round through
 `shard_round_fn(mesh=)` and stages only its clients' rows of each round
-batch through the same prefetch path (a batch of all M rows is cut to the
-rank's on the prefetch thread, before it is pinned; a batch of the rank's
-rows, such as a cached dataset's `block(rank, D)` reads, passes). Every
+batch and of each eval batch through the same prefetch path (a batch of
+all M rows is cut to the rank's on the prefetch thread, before it is
+pinned; a batch of the rank's rows, such as a cached dataset's
+`subset(rows)` reads, passes). Every
 rank draws the same seeded schedule stream and gets the global metrics;
 history and the log lines come from the mesh's first rank, with the
 global loss, participants and sim_time; eval metrics are gathered over
-the client group. A checkpoint is the whole state, gathered
-(`gather_algorithm_state`) and written by the first rank in the same file
+the client group. A checkpoint is the whole state, gathered in client
+order (`gather_algorithm_state`) and written by the first rank in the same file
 format as an unsharded run's, so either kind of run resumes from the
 other's file. `train` returns this rank's part of the state. The async
 engine refuses a mesh, as the reference's.
@@ -227,8 +230,8 @@ def train(
         import torch.distributed as dist
 
         group = client_group(mesh)
-        rows = group.rows(num_clients)
-        state = place_algorithm_state(alg, state, mesh, device)
+        rows = group.rows(num_clients, tcfg.client_chunk)
+        state = place_algorithm_state(alg, state, mesh, device, tcfg.client_chunk)
         # this rank's rows of each round batch, cut on the prefetch thread
         batches = (client_rows(b, num_clients, rows) for b in batches)
         if dist.get_rank() != mesh_ranks(mesh)[0]:
@@ -275,7 +278,7 @@ def train(
             return
         import torch.distributed as dist
 
-        whole = gather_algorithm_state(alg, state, mesh)
+        whole = gather_algorithm_state(alg, state, mesh, tcfg.client_chunk)
         if dist.get_rank() == mesh_ranks(mesh)[0]:
             save_algorithm_state(tcfg.checkpoint_path, alg, whole, extra=extra,
                                  cfg=model.cfg)

@@ -5,9 +5,10 @@ Axis conventions (launch/mesh.py): "data" is the MTSL client axis, "pod"
 the outer client axis that composes with it, "model" the tensor axis. The
 reference places a leaf with a NamedSharding and lets GSPMD lower the
 cross-client reductions to all-reduces. The port runs one process per mesh
-position instead: a rank holds the rows of its client block of every
-leading-client-axis leaf (towers, per-client optimizer state, schedule
-rows, batches), every other leaf is replicated, and the round's
+position instead: a rank holds the rows of its clients (`rank_rows`: a
+contiguous block, or under a client chunk its part of each chunk) of
+every leading-client-axis leaf (towers, per-client optimizer state,
+schedule rows, batches), every other leaf is replicated, and the round's
 cross-client reductions are all-reduces over the rank's CLIENT GROUP: the
 ranks that share its "model" coordinate, ordered by their ("pod", "data")
 coordinate (`client_group`, the port's `client_sharding`). The reference
@@ -121,14 +122,41 @@ class ClientGroup(NamedTuple):
     size: int
     index: int
 
-    def rows(self, num_clients: int) -> slice:
-        """This rank's contiguous block of the client axis (the reference's
-        NamedSharding splits the leading axis into D contiguous blocks)."""
-        if num_clients % self.size:
-            raise ValueError(f"num_clients {num_clients} not divisible by the "
-                             f"mesh's client-shard count {self.size}")
-        per = num_clients // self.size
-        return slice(self.index * per, (self.index + 1) * per)
+    def rows(self, num_clients: int, chunk: Optional[int] = None):
+        """This rank's clients: `rank_rows(num_clients, D, index, chunk)`."""
+        return rank_rows(num_clients, self.size, self.index, chunk)
+
+
+def rank_rows(num_clients: int, size: int, index: int,
+              chunk: Optional[int] = None):
+    """The clients rank `index` of `size` client shards holds, in the
+    order it holds them: { j·c + index·(c/D) + i : j < M/c, i < c/D }, with
+    c = M without a chunk or for a chunk >= M. So the ranks' sub-blocks of
+    chunk j, read in rank order, are clients [j·c, (j+1)·c), the reference's
+    chunk j with the client mesh axes on its in-chunk dimension
+    (`_chunk_spec_sharding`), and with c = M a rank holds the contiguous
+    block its NamedSharding gives it. A slice when the clients are
+    contiguous, else a list of client ids (either indexes a tensor or an
+    array)."""
+    if num_clients % size:
+        raise ValueError(f"num_clients {num_clients} not divisible by the "
+                         f"mesh's client-shard count {size}")
+    c = num_clients if chunk is None or chunk >= num_clients else chunk
+    if num_clients % c:
+        raise ValueError(f"num_clients {num_clients} not divisible by "
+                         f"client_chunk {c}")
+    if c % size:
+        raise ValueError(f"client_chunk {c} must be a multiple of the mesh's "
+                         f"client-shard count {size}")
+    per = c // size
+    if c == num_clients or size == 1:
+        return slice(index * num_clients // size, (index + 1) * num_clients // size)
+    return [j + index * per + i for j in range(0, num_clients, c) for i in range(per)]
+
+
+def row_count(rows) -> int:
+    """The number of clients in a `rank_rows` result."""
+    return rows.stop - rows.start if isinstance(rows, slice) else len(rows)
 
 
 class _MeshGroups(NamedTuple):

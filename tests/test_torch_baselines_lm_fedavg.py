@@ -9,7 +9,9 @@ tests/test_torch_baselines_lm_splitfed.py."""
 import pytest
 
 from repro_torch.configs import get_config
-from torch_baseline_parity import SCHEDULES, run_parity
+from torch_baseline_parity import SCHEDULES, one_thread, run_parity  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SCHEDULES.setdefault("lm-masked", {"participation_rate": 0.5, "seed": 3})
 

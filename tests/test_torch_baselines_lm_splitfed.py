@@ -20,7 +20,9 @@ tests/torch_baseline_drift.py prints these numbers."""
 import pytest
 
 from repro_torch.configs import get_config
-from torch_baseline_parity import SCHEDULES, run_parity
+from torch_baseline_parity import SCHEDULES, one_thread, run_parity  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SCHEDULES.setdefault("lm-masked", {"participation_rate": 0.5, "seed": 3})
 

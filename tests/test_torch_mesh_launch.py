@@ -14,7 +14,7 @@ ranks:
     resumed from a sharded run's checkpoint, each match the uninterrupted
     runs within 1e-5; the reference's `train/checkpoint.py` reads the
     sharded run's file (the same leaves as the port's reader); each rank
-    reading its `block` of a cached dataset trains as the unsharded run
+    reading its clients (`subset`) of a cached dataset trains as the unsharded run
     on the whole cache;
   * the launcher's refusals against the reference's messages: a mesh
     whose client shards do not divide M, `--async` with `--mesh`, a

@@ -195,9 +195,9 @@ def _sharded(cell, mesh, world, tally=None):
     cfg, model = _model(cell["cfg"])
     alg = get_algorithm(cell["alg"])
     hp = _hp(cell)
-    rf = shard_round_fn(alg, model, cell["M"], hp, mesh=mesh,
-                        client_chunk=cell.get("chunk"))
-    state = place_algorithm_state(alg, cell["init"], mesh)
+    chunk = cell.get("chunk")
+    rf = shard_round_fn(alg, model, cell["M"], hp, mesh=mesh, client_chunk=chunk)
+    state = place_algorithm_state(alg, cell["init"], mesh, client_chunk=chunk)
     batch = stage_batch(cell["batch"], "cpu")
     losses = []
     reset_collectives()
@@ -210,11 +210,11 @@ def _sharded(cell, mesh, world, tally=None):
     if cfg.family in ("mlp", "resnet"):
         group = client_group(mesh)
         ev_fn = alg.eval_fn(model, cell["M"])
-        with client_axis(group=group):
-            rows = group.rows(cell["M"])
+        with client_axis(chunk=chunk, group=group):
+            rows = group.rows(cell["M"], chunk)
             ev = {k: v.numpy() for k, v in ev_fn(
                 state, {k: v[rows] for k, v in batch.items()}).items()}
-    whole = flat_state(gather_algorithm_state(alg, state, mesh))
+    whole = flat_state(gather_algorithm_state(alg, state, mesh, chunk))
     # every rank's whole state, flattened, against this rank's
     vec = torch.cat([torch.as_tensor(whole[k], dtype=torch.float64).reshape(-1)
                      for k in sorted(whole)])
@@ -243,6 +243,47 @@ def rounds_task(rank, world, payload):
         res["mesh"] = _sharded(cell, meshes[cell["mesh"]], world, res["collectives"])
         out["cells"][key] = res
         dist.barrier()
+    if "train" in payload:
+        out["train"] = train_ckpt(payload["train"], meshes[payload["train"]["mesh"]])
+    return out
+
+
+def lm_train(p, mesh, rounds, *, init, start=0, path=None):
+    """train() of p's LM cell (`p["cfg"]`, mtsl, sgd at p["lr"], p["M"]
+    clients of p["b"] sequences of p["S"] tokens from the seeded LM
+    source) from the whole state `init`, over client chunks of p["chunk"],
+    on `mesh` or without one: the rounds after `start`, checkpointed to
+    `path` after the last."""
+    from repro_torch.data.lm import MultiTaskLMSource
+    from repro_torch.data.pipeline import client_batches
+    from repro_torch.optim import sgd
+    from repro_torch.train.loop import TrainConfig, train
+
+    cfg, model = _model(p["cfg"])
+    src = MultiTaskLMSource(vocab_size=cfg.vocab_size, num_clients=p["M"], beta=0.5,
+                            seed=0)
+    stream = list(client_batches(src, p["b"], steps=rounds, seed=0,
+                                 seq_len=p["S"]))[start:]
+    tcfg = TrainConfig(steps=rounds, algorithm="mtsl", lr=p["lr"], seed=0,
+                       device="cpu", log_every=1, mesh=mesh, client_chunk=p["chunk"],
+                       checkpoint_path=path)
+    return train(model, sgd(p["lr"]), iter(stream), tcfg, p["M"], init_state=init,
+                 start_round=start, log=lambda _: None)
+
+
+def train_ckpt(p, mesh):
+    """The chunked mesh run of tests/test_torch_moe_mesh_groups.py: p["cut"]
+    rounds written to p["path"], then on to p["rounds"] from the gathered
+    state: (losses and whole state at the cut, at the end)."""
+    from repro_torch.core.algorithms import gather_algorithm_state, get_algorithm
+
+    alg = get_algorithm("mtsl")
+    out, init, start = {}, copy.deepcopy(p["init"]), 0
+    for key, rounds, path in (("cut", p["cut"], p["path"]), ("end", p["rounds"], None)):
+        state, hist = lm_train(p, mesh, rounds, init=init, start=start, path=path)
+        init = gather_algorithm_state(alg, state, mesh, p["chunk"])
+        out[key] = ([e["loss"] for e in hist], flat_state(init))
+        start = rounds
     return out
 
 
@@ -314,7 +355,7 @@ def ckpt_task(rank, world, p):
 
     dist.barrier()
     g = client_group(mesh)
-    ds = shards.load_cache(p["cache"]).block(g.index, g.size)
+    ds = shards.load_cache(p["cache"]).subset(g.rows(p["M"]))
     s_c, h_c = run_train(p, mesh, R, source=ds)
     out["cached"] = (h_c, whole(s_c))
     return out
